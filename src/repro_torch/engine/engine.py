@@ -1,0 +1,464 @@
+"""Device-resident streaming join engine, single stream.
+
+Counterpart of ``repro.engine.engine``'s :class:`StreamEngine`.  Per
+request, :meth:`StreamEngine.push` pads the batch to micro-batches and
+runs them in a host loop on one CUDA stream (the reference's
+``lax.scan``); each micro-batch
+
+  1. joins against the window (strip gate, then the tile join with
+     in-kernel candidate select) and within itself (ungated);
+  2. merges both candidate sets into one ``(max_pairs,)`` buffer;
+  3. writes itself into the ring oldest-first, refreshing the strip
+     summaries it touched;
+  4. adds its counts to the telemetry.
+
+The window and telemetry tensors are updated in place where JAX donated
+the carry.  The outputs of one push go to a single-worker copy thread,
+which waits on a CUDA event recorded after the push's last micro-batch,
+copies into pinned host memory on its own stream and stamps ``t_done``;
+``drain_*`` only joins on already-copied results.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import time
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..core.similarity import time_horizon
+from ..kernels.sssj_join import (
+    PairBuffer,
+    concat_candidates,
+    merge_candidates,
+    sssj_join_candidates,
+)
+from ..obs import MetricsRegistry
+from .window import EVICTION_POLICIES, WindowState, init_window, push_with_overflow
+
+__all__ = [
+    "EngineConfig",
+    "EngineTelemetry",
+    "StreamEngine",
+    "StreamEngineBase",
+    "init_telemetry",
+    "make_batch_step",
+    "make_micro_step",
+    "pad_request",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    theta: float
+    lam: float
+    capacity: int
+    d: int
+    micro_batch: int = 128       # step size; requests are padded up
+    max_pairs: int = 4096        # compacted-emission capacity per micro-batch
+    tile_k: int = 256            # level-1 candidates kept per kernel tile
+    block_q: int = 128
+    block_w: int = 128
+    chunk_d: int = 128
+    emit_dense: bool = False     # dense-matrix oracle path: not ported yet
+    join_impl: Optional[str] = None  # None = kernel path, "dense" = oracle
+    eviction: str = "oldest"     # write-slot policy; only "oldest" is ported
+    l2_gate: Optional[bool] = None  # strip gate: True/False, None = auto
+    #   (on for the kernel path, where it can skip launches)
+
+    def __post_init__(self) -> None:
+        """Reject configurations that would only fail later, deep inside
+        a step."""
+        if not 0.0 < self.theta <= 1.0:
+            raise ValueError(f"theta must be in (0, 1], got {self.theta}")
+        if self.lam < 0.0:
+            raise ValueError(f"lam must be ≥ 0, got {self.lam}")
+        for name in ("capacity", "d", "micro_batch", "max_pairs", "tile_k",
+                     "block_q", "block_w", "chunk_d"):
+            v = getattr(self, name)
+            if (isinstance(v, bool) or not isinstance(v, (int, np.integer))
+                    or v < 1):
+                raise ValueError(f"{name} must be a positive int, got {v!r}")
+        if self.micro_batch > self.capacity:
+            raise ValueError(
+                f"micro_batch ({self.micro_batch}) exceeds window capacity "
+                f"({self.capacity}): a single micro-batch would overwrite "
+                f"its own arrivals; raise capacity or lower micro_batch"
+            )
+        if self.join_impl == "scan":
+            raise NotImplementedError(
+                "join_impl='scan' is not ported yet (ROADMAP queue 1, item 1)"
+            )
+        if self.join_impl not in (None, "dense"):
+            raise ValueError(
+                f"join_impl must be None (kernel path) or 'dense', "
+                f"got {self.join_impl!r}"
+            )
+        if self.emit_dense:
+            raise NotImplementedError(
+                "emit_dense needs the dense-emission kernel, not ported yet "
+                "(ROADMAP queue 2, item 3)"
+            )
+        if self.l2_gate is True and self.join_impl == "dense":
+            raise ValueError(
+                "l2_gate=True requires a gated join path; the dense oracle "
+                "(join_impl='dense') never consults the gate — drop l2_gate "
+                "or leave it None"
+            )
+        if self.eviction not in EVICTION_POLICIES:
+            raise ValueError(
+                f"eviction must be one of {EVICTION_POLICIES}, "
+                f"got {self.eviction!r}"
+            )
+        if self.eviction != "oldest":
+            raise NotImplementedError(
+                f"eviction={self.eviction!r} is not ported yet; it comes "
+                f"with the multi-tenant runtime (ROADMAP queue 1, item 7)"
+            )
+
+    @property
+    def tau(self) -> float:
+        return time_horizon(self.theta, self.lam)
+
+    @property
+    def gate_enabled(self) -> bool:
+        """Whether the window carries strip summaries and the window join
+        runs the pre-launch gate."""
+        if self.l2_gate is not None:
+            return bool(self.l2_gate)
+        return self.join_impl != "dense"
+
+    @property
+    def candidate_kwargs(self) -> dict:
+        """kwargs for :func:`sssj_join_candidates`."""
+        return dict(
+            theta=self.theta, lam=self.lam, tile_k=self.tile_k,
+            block_q=self.block_q, block_w=self.block_w, chunk_d=self.chunk_d,
+            impl=self.join_impl,
+        )
+
+
+class EngineTelemetry(NamedTuple):
+    """Device counters, updated in place.  ``chunks``/``tiles`` count the
+    window join only; drops are split by level."""
+
+    chunks: torch.Tensor        # d-chunks executed (pruning telemetry)
+    tiles: torch.Tensor         # window-join tiles visited
+    pairs: torch.Tensor         # pairs emitted (post-merge)
+    dropped: torch.Tensor       # pairs lost to the max_pairs budget
+    dropped_tile: torch.Tensor  # pairs lost to per-tile caps
+    tiles_skipped_time: torch.Tensor  # gate kills by the time bound
+    tiles_skipped_l2: torch.Tensor    # gate kills by the value bounds
+    strips_survived: torch.Tensor     # strips some query tile admitted
+
+
+def init_telemetry(device: DeviceLike = None) -> EngineTelemetry:
+    dev = resolve_device(device)
+    return EngineTelemetry(*(
+        torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in EngineTelemetry._fields
+    ))
+
+
+def pad_request(vecs, ts, next_uid: int, micro_batch: int):
+    """Assign uids and pad a request to a micro-batch multiple (pad rows
+    carry ``uid = -1`` so the order mask silences them; pad timestamps
+    repeat the last valid one).
+
+    Returns host arrays ``(uq (b,), qs (n_micro, mb, d), tqs, uqs
+    (n_micro, mb), nvs (n_micro,))`` with ``nvs`` the valid-row counts.
+    """
+    vecs = np.asarray(vecs, np.float32)
+    ts = np.asarray(ts, np.float32).reshape(-1)
+    b = vecs.shape[0]
+    uq = np.arange(next_uid, next_uid + b, dtype=np.int32)
+    mb = micro_batch
+    n_micro = -(-b // mb)
+    pad = n_micro * mb - b
+    if pad:
+        vecs = np.concatenate([vecs, np.zeros((pad, vecs.shape[1]), np.float32)])
+        ts = np.concatenate([ts, np.full(pad, ts[-1], np.float32)])
+        uq_in = np.concatenate([uq, np.full(pad, -1, np.int32)])
+    else:
+        uq_in = uq
+    nvs = np.full(n_micro, mb, np.int32)
+    nvs[-1] = mb - pad
+    return (
+        uq,
+        vecs.reshape(n_micro, mb, -1),
+        ts.reshape(n_micro, mb),
+        uq_in.reshape(n_micro, mb),
+        nvs,
+    )
+
+
+def make_micro_step(cfg: EngineConfig):
+    """The per-micro-batch step: ``(state, telem, q, tq, uq, n_valid) →
+    (PairBuffer, row_mask (mb,) bool)``; ``state`` and ``telem`` are
+    updated in place, ``n_valid`` is a host int."""
+    ckw = cfg.candidate_kwargs
+    tau = cfg.tau
+
+    def micro_step(state: WindowState, telem: EngineTelemetry,
+                   q, tq, uq, n_valid: int):
+        dev = q.device
+        # the window join consults the strip summary (None = ungated); the
+        # self join never does: its one strip is this micro-batch
+        jw = sssj_join_candidates(
+            q, state.vecs, tq, state.ts, uq, state.uids,
+            summary=state.summary, device=dev, **ckw,
+        )
+        js = sssj_join_candidates(q, q, tq, tq, uq, uq, device=dev, **ckw)
+        buf = merge_candidates(
+            concat_candidates(jw.cands, js.cands), max_pairs=cfg.max_pairs
+        )
+        row_mask = jw.row_mask | js.row_mask
+        # newest valid arrival: the reference point for live-slot overflow
+        lanes = torch.arange(q.shape[0], device=dev)
+        t_max = torch.where(lanes < n_valid, tq, -torch.inf).max()
+        push_with_overflow(
+            state, q, tq, uq, n_valid, t_max, tau, eviction=cfg.eviction,
+            summary_block_w=cfg.block_w, summary_chunk_d=cfg.chunk_d,
+        )
+        gs = jw.gate_stats
+        for acc, inc in (
+            (telem.chunks, jw.iters.sum()),
+            (telem.tiles, jw.iters.numel()),
+            (telem.pairs, buf.n_pairs),
+            (telem.dropped, buf.n_dropped),
+            (telem.dropped_tile, buf.n_dropped_tile),
+            (telem.tiles_skipped_time, gs[0]),
+            (telem.tiles_skipped_l2, gs[1]),
+            (telem.strips_survived, gs[2]),
+        ):
+            acc.add_(inc)
+        return buf, row_mask
+
+    return micro_step
+
+
+def make_batch_step(cfg: EngineConfig):
+    """The request-batch step: ``(state, telem, qs, tqs, uqs, nvs) →
+    (bufs, masks)``, a host loop of micro-steps over ``qs (n_micro, mb,
+    d)``, ``tqs/uqs (n_micro, mb)`` device tensors and ``nvs`` host
+    counts; ``bufs`` stacks each :class:`PairBuffer` leaf over
+    micro-batches and ``masks`` is ``(n_micro, mb)``."""
+    micro_step = make_micro_step(cfg)
+
+    def batch_step(state, telem, qs, tqs, uqs, nvs):
+        outs = [
+            micro_step(state, telem, qs[m], tqs[m], uqs[m], int(nvs[m]))
+            for m in range(qs.shape[0])
+        ]
+        bufs = PairBuffer(*(torch.stack(x) for x in zip(*(b for b, _ in outs))))
+        return bufs, torch.stack([m for _, m in outs])
+
+    return batch_step
+
+
+class StreamEngineBase:
+    """Host facade: request padding, the copy thread, drains and metrics.
+
+    Subclasses set ``state``, ``telem`` and ``_step`` in ``__init__``.
+    """
+
+    def __init__(
+        self, cfg: EngineConfig, device: DeviceLike = None,
+        registry: Optional[MetricsRegistry] = None,
+    ) -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._next_uid = 0
+        # futures of host-materialized (bufs, masks, nvs, nbytes, t_done,
+        # fetch_s) records
+        self._pending: List[concurrent.futures.Future] = []
+        self._copier = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="sssj-drain"
+        )
+        self._copy_stream = (
+            torch.cuda.Stream(self.device) if self.device.type == "cuda"
+            else None
+        )
+        self.n_items = 0
+        # host↔device traffic: what the dense path would have moved vs
+        # what the compacted path actually moves
+        self.bytes_to_host = 0
+        self.bytes_dense_equiv = 0
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.registry.register_collector(self._publish_metrics)
+
+    # ------------------------------------------------------------------ #
+    def push(self, vecs: np.ndarray, ts: np.ndarray) -> np.ndarray:
+        """Feed one request batch; returns the uids assigned to it.  Does
+        not wait for this request's device work (its upload from pageable
+        memory does wait for the previous request's): call
+        :meth:`drain_arrays` / :meth:`drain_pairs` to collect pairs."""
+        b = np.asarray(vecs).shape[0]
+        if b == 0:
+            return np.empty((0,), np.int32)
+        uq, qs, tqs, uqs, nvs = pad_request(
+            vecs, ts, self._next_uid, self.cfg.micro_batch
+        )
+        self._next_uid += b
+        self.n_items += b
+        dev = self.device
+        bufs, masks = self._step(
+            self.state, self.telem, torch.from_numpy(qs).to(dev),
+            torch.from_numpy(tqs).to(dev), torch.from_numpy(uqs).to(dev), nvs,
+        )
+        done = None
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+        self._pending.append(
+            self._copier.submit(self._fetch, bufs, masks, nvs, done)
+        )
+        # the dense path would have fetched (mb, capacity) + (mb, mb) f32
+        # score matrices per micro-batch
+        mb = self.cfg.micro_batch
+        self.bytes_dense_equiv += qs.shape[0] * 4 * (
+            mb * self.cfg.capacity + mb * mb
+        )
+        return uq
+
+    def _fetch(self, bufs: PairBuffer, masks: torch.Tensor, nvs: np.ndarray,
+               done: Optional[torch.cuda.Event]):
+        """Copy-thread D2H of one push's outputs.  Stamps ``t_done``
+        (monotonic) when the copy lands, plus the copy duration."""
+        t0 = time.monotonic()
+        tensors = [*bufs, masks]
+        if done is None:       # CPU tensors: the step already ran
+            host = [x.numpy() for x in tensors]
+        else:
+            with torch.cuda.stream(self._copy_stream):
+                self._copy_stream.wait_event(done)
+                pinned = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                          for x in tensors]
+                for p, x in zip(pinned, tensors):
+                    p.copy_(x, non_blocking=True)
+            self._copy_stream.synchronize()
+            host = [p.numpy() for p in pinned]
+        bufs_h, masks_h = PairBuffer(*host[:-1]), host[-1]
+        nbytes = sum(x.nbytes for x in host)
+        t_done = time.monotonic()
+        return bufs_h, masks_h, nvs, nbytes, t_done, t_done - t0
+
+    # ------------------------------------------------------------------ #
+    def _drain(self):
+        recs = [f.result() for f in self._pending]
+        self._pending.clear()
+        ua_all, ub_all, sc_all, mk_all = [], [], [], []
+        for bufs, masks, nvs, nbytes, _t_done, _fetch_s in recs:
+            self.bytes_to_host += nbytes
+            n = np.asarray(bufs.n_pairs)
+            n = n.reshape(n.shape[0], -1)             # (n_micro, n_segments)
+            n_micro, n_seg = n.shape
+            width = bufs.uid_a.reshape(n_micro, -1).shape[1] // n_seg
+            sel = np.arange(width)[None, None, :] < n[:, :, None]
+            # row-major (micro, segment, rank) flatten == stream order
+            ua_all.append(bufs.uid_a.reshape(n_micro, n_seg, width)[sel])
+            ub_all.append(bufs.uid_b.reshape(n_micro, n_seg, width)[sel])
+            sc_all.append(bufs.score.reshape(n_micro, n_seg, width)[sel])
+            lanes = np.arange(masks.shape[1])[None, :]
+            mk_all.append(masks[lanes < nvs[:, None]])
+        if not ua_all:
+            z = np.empty((0,), np.int32)
+            return z, z.copy(), np.empty((0,), np.float32), np.empty((0,), bool)
+        return (
+            np.concatenate(ua_all),
+            np.concatenate(ub_all),
+            np.concatenate(sc_all),
+            np.concatenate(mk_all).astype(bool),
+        )
+
+    def drain_arrays(self, return_masks: bool = False) -> Tuple[np.ndarray, ...]:
+        """Everything emitted since the last drain: ``(uid_a, uid_b,
+        score)`` (uid_a is the newer item), plus with ``return_masks`` a
+        ``(n_items,)`` bool per-row match mask aligned with the uids the
+        intervening pushes handed out (exact under emission overflow)."""
+        ua, ub, sc, mk = self._drain()
+        if return_masks:
+            return ua, ub, sc, mk
+        return ua, ub, sc
+
+    def drain_pairs(self) -> List[Tuple[int, int, float]]:
+        """Compatibility drain: list of ``(uid_a, uid_b, score)`` tuples."""
+        ua, ub, sc = self.drain_arrays()
+        return list(zip(ua.tolist(), ub.tolist(), sc.tolist()))
+
+    def close(self) -> None:
+        """Release the copy thread; undrained copies are abandoned."""
+        self._copier.shutdown(wait=False)
+
+    def __del__(self) -> None:
+        copier = getattr(self, "_copier", None)
+        if copier is not None:
+            copier.shutdown(wait=False)
+
+    # ------------------------------------------------------------------ #
+    @property
+    def overflow(self) -> int:
+        """Live ring slots overwritten (window undersized)."""
+        return int(self.state.overflow.item())
+
+    @property
+    def pairs_dropped(self) -> int:
+        """Pairs lost to emission capacity at any level."""
+        return int(self.telem.dropped.item() + self.telem.dropped_tile.item())
+
+    def _publish_metrics(self, reg: MetricsRegistry) -> None:
+        """Snapshot-time collector: engine counters under ``engine/…``."""
+        t = EngineTelemetry(*(int(x.item()) for x in self.telem))
+        c = reg.counter
+        c("engine/n_items").set(self.n_items)
+        c("engine/chunks_executed").set(t.chunks)
+        c("engine/tiles_total").set(t.tiles)
+        c("engine/pairs_emitted").set(t.pairs)
+        c("engine/pairs_dropped").set(t.dropped + t.dropped_tile)
+        c("engine/pairs_dropped_budget").set(t.dropped)
+        c("engine/pairs_dropped_tile").set(t.dropped_tile)
+        c("engine/window_overflow").set(self.overflow)
+        c("engine/bytes_to_host").set(self.bytes_to_host)
+        c("engine/bytes_dense_equiv").set(self.bytes_dense_equiv)
+        # gate counters; tiles_total repeats the window-join tile count so
+        # skip fractions are self-contained
+        c("engine/prune/tiles_total").set(t.tiles)
+        c("engine/prune/tiles_skipped_time").set(t.tiles_skipped_time)
+        c("engine/prune/tiles_skipped_l2").set(t.tiles_skipped_l2)
+        c("engine/prune/strips_survived").set(t.strips_survived)
+
+    def metrics(self) -> dict:
+        """The namespaced registry snapshot (the primary stats surface)."""
+        return self.registry.snapshot()
+
+    def stats(self) -> dict:
+        """The reference's ``stats()`` keys, from a registry snapshot."""
+        snap = self.registry.snapshot()
+        return {
+            k: snap[f"engine/{k}"]
+            for k in ("n_items", "chunks_executed", "tiles_total",
+                      "pairs_emitted", "pairs_dropped", "pairs_dropped_budget",
+                      "pairs_dropped_tile", "window_overflow", "bytes_to_host",
+                      "bytes_dense_equiv")
+        }
+
+
+class StreamEngine(StreamEngineBase):
+    """Single-device engine over one ring window."""
+
+    def __init__(
+        self, cfg: EngineConfig, device: DeviceLike = None,
+        registry: Optional[MetricsRegistry] = None,
+    ) -> None:
+        super().__init__(cfg, device, registry)
+        self.state: WindowState = init_window(
+            cfg.capacity, cfg.d, eviction=cfg.eviction,
+            summary_block_w=cfg.block_w if cfg.gate_enabled else None,
+            summary_chunk_d=cfg.chunk_d, device=self.device,
+        )
+        self.telem = init_telemetry(self.device)
+        self._step = make_batch_step(cfg)

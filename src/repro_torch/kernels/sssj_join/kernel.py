@@ -1,0 +1,230 @@
+"""Tile join with in-kernel candidate select: CUDA kernel + plain version.
+
+Counterpart of ``repro.kernels.sssj_join.kernel``'s
+``sssj_join_candidates_kernel_call`` (TPU kernel ``_cand_kernel`` with the
+score core ``_tile_scores``).  For each ``(block_q, block_w)`` tile:
+
+  * the decay matrix ``exp(-λ|Δt|)``, with the uid-order, empty-slot and
+    stream masks folded in as zeros;
+  * the tile is dead (``iters = 0``) when its max decay is below θ or its
+    gate bit is 0;
+  * otherwise ``q·wᵀ`` accumulates over ``chunk_d`` slabs, stopping once
+    ``(acc + ‖q^{>k}‖‖w^{>k}‖)·decay < θ`` for the whole tile;
+  * the ≥ θ entries go, in row-major order, into a ``(tile_k,)`` buffer.
+
+On a CUDA tensor :func:`sssj_join_candidates_kernel_call` launches
+``csrc/sssj_cand.cu`` (128 × 128 tiles; the source's header says what
+bounds it on an H100 and how its design answers that) or raises.  On a
+CPU tensor it runs :func:`cand_tiles_plain`, the same arithmetic in plain
+PyTorch, which is also the kernel's oracle on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ..._device import ieee_f32
+from .._build import load
+
+__all__ = [
+    "NEG_UID",
+    "cand_tiles_plain",
+    "sssj_join_candidates_kernel_call",
+]
+
+NEG_UID = -1  # uid marking empty / padded slots
+KERNEL_BLOCK = 128  # the CUDA kernel's tile edge (block_q = block_w)
+
+
+def _col(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else x.reshape(-1)
+
+
+def _tile_any(x: torch.Tensor, nq: int, bq: int, nw: int, bw: int):
+    """``(Qp, Wp)`` bool → ``(nq, nw)``: any entry of each tile."""
+    return x.reshape(nq, bq, nw, bw).any(3).any(1)
+
+
+def cand_tiles_plain(
+    q, w, tq, tw, uq, uw, sqq, sqw, *, theta: float, lam: float,
+    block_q: int, block_w: int, chunk_d: int, tile_k: int,
+    sq=None, sw=None, theta_q=None, lam_q=None, gate=None,
+):
+    """Plain PyTorch version of the tile join (same signature and outputs
+    as :func:`sssj_join_candidates_kernel_call`).  ``iters`` follows the
+    kernel's per-tile early exit exactly: a tile runs chunk ``k`` only if
+    some entry's bound after chunk ``k-1`` still reached θ."""
+    tq, tw, uq, uw = _col(tq).float(), _col(tw).float(), _col(uq), _col(uw)
+    Qp, d = q.shape
+    Wp = w.shape[0]
+    nq, nw = Qp // block_q, Wp // block_w
+    n_chunks = d // chunk_d
+    dims = (nq, block_q, nw, block_w)
+    th = theta if theta_q is None else _col(theta_q).float()[:, None]
+    lam_col = lam if lam_q is None else _col(lam_q).float()[:, None]
+
+    decay = torch.exp(-lam_col * (tq[:, None] - tw[None, :]).abs())
+    order = (uw[None, :] >= 0) & (uq[:, None] > uw[None, :])
+    if sq is not None:
+        order &= _col(sq)[:, None] == _col(sw)[None, :]
+    decay = torch.where(order, decay, 0.0)
+
+    running = _tile_any(decay >= th, *dims)
+    if gate is not None:
+        running &= gate.reshape(nq, nw) > 0
+    iters = torch.zeros((nq, nw), dtype=torch.int32, device=q.device)
+    acc = torch.zeros((Qp, Wp), dtype=torch.float32, device=q.device)
+    for k in range(n_chunks):
+        if not bool(running.any()):
+            break
+        sl = slice(k * chunk_d, (k + 1) * chunk_d)
+        with ieee_f32(q.device):
+            part = q[:, sl].float() @ w[:, sl].float().T
+        run_e = running[:, None, :, None].expand(dims).reshape(Qp, Wp)
+        acc = torch.where(run_e, acc + part, acc)
+        iters += running.int()
+        ub = (acc + sqq[:, k, None] * sqw[None, :, k]) * decay
+        running &= _tile_any(ub >= th, *dims)
+
+    scores = acc * decay
+    emitted = torch.where(scores >= th, scores, 0.0)
+    n = block_q * block_w
+    flat = emitted.reshape(dims).permute(0, 2, 1, 3).reshape(nq, nw, n)
+    hit = flat > 0.0
+    cum = torch.cumsum(hit.int(), 2)
+    count = cum[..., -1]
+    row_hits = (hit.reshape(nq, nw, block_q, block_w).any(3)).int()
+    target = torch.arange(1, tile_k + 1, dtype=cum.dtype, device=q.device)
+    src = torch.searchsorted(cum.reshape(nq * nw, n),
+                             target.expand(nq * nw, tile_k).contiguous())
+    src = torch.clamp(src, max=n - 1).reshape(nq, nw, tile_k)
+    valid = target <= torch.clamp(count, max=tile_k)[..., None]
+    cand_idx = torch.where(valid, src, -1).int()
+    cand_score = torch.where(valid, torch.gather(flat, 2, src), 0.0)
+    return cand_idx, cand_score, count.int(), row_hits, iters
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load("sssj_cand")
+    p = ctypes.c_void_p
+    lib.sssj_cand_launch.argtypes = (
+        [p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [p]
+    )
+    lib.sssj_cand_launch.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _cuda_lane(x, n: int, dtype: torch.dtype, device) -> Optional[torch.Tensor]:
+    if x is None:
+        return None
+    x = x.reshape(-1)
+    if x.shape[0] != n or x.device != device:
+        raise ValueError(f"lane of shape {tuple(x.shape)} on {x.device}, "
+                         f"expected ({n},) on {device}")
+    return x.to(dtype).contiguous()
+
+
+def sssj_join_candidates_kernel_call(
+    q: torch.Tensor,        # (Qp, d)
+    w: torch.Tensor,        # (Wp, d)
+    tq: torch.Tensor,       # (Qp, 1) f32
+    tw: torch.Tensor,       # (Wp, 1) f32
+    uq: torch.Tensor,       # (Qp, 1) i32
+    uw: torch.Tensor,       # (Wp, 1) i32
+    sqq: torch.Tensor,      # (Qp, n_chunks) f32 suffix norms after each chunk
+    sqw: torch.Tensor,      # (Wp, n_chunks) f32
+    *,
+    theta: float,
+    lam: float,
+    block_q: int,
+    block_w: int,
+    chunk_d: int,
+    tile_k: int,
+    sq: Optional[torch.Tensor] = None,       # (Qp, 1) i32 stream ids
+    sw: Optional[torch.Tensor] = None,       # (Wp, 1) i32
+    theta_q: Optional[torch.Tensor] = None,  # (Qp, 1) f32 per-row θ
+    lam_q: Optional[torch.Tensor] = None,    # (Qp, 1) f32 per-row λ
+    gate: Optional[torch.Tensor] = None,     # (nq, nw) i32 (0 = dead)
+):
+    """Level-1 tile join; shapes must be padded to block multiples.
+
+    Returns ``(cand_idx (nq, nw, tile_k) i32 in-tile row-major flat index
+    or -1, cand_score (nq, nw, tile_k) f32, emitted (nq, nw) i32 true ≥ θ
+    counts, row_hits (nq, nw, block_q) i32 0/1, iters (nq, nw) i32)``.
+    The four multi-tenant lanes come all or none (``theta_q``/``lam_q``
+    may be left out with stream lanes: the scalars then fill them).
+    """
+    if q.device.type == "cpu":
+        return cand_tiles_plain(
+            q, w, tq, tw, uq, uw, sqq, sqw, theta=theta, lam=lam,
+            block_q=block_q, block_w=block_w, chunk_d=chunk_d, tile_k=tile_k,
+            sq=sq, sw=sw, theta_q=theta_q, lam_q=lam_q, gate=gate,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no tile-join kernel for device {q.device}")
+    if block_q != KERNEL_BLOCK or block_w != KERNEL_BLOCK:
+        raise ValueError(
+            f"the CUDA tile join takes {KERNEL_BLOCK}x{KERNEL_BLOCK} tiles, "
+            f"got block_q={block_q}, block_w={block_w}"
+        )
+    Qp, d = q.shape
+    Wp = w.shape[0]
+    if (w.shape[1] != d or Qp % block_q or Wp % block_w or d % chunk_d
+            or q.dtype != torch.float32 or w.dtype != torch.float32):
+        raise ValueError(
+            f"tile join needs f32 q (Qp, d), w (Wp, d) padded to block and "
+            f"chunk multiples; got {tuple(q.shape)} {q.dtype}, "
+            f"{tuple(w.shape)} {w.dtype}, chunk_d={chunk_d}"
+        )
+    if (sq is None) != (sw is None) or (theta_q is None) != (lam_q is None):
+        raise ValueError("stream lanes and per-row (θ, λ) come in pairs")
+    if sq is not None and theta_q is None:
+        theta_q = torch.full((Qp,), theta, dtype=torch.float32, device=q.device)
+        lam_q = torch.full((Qp,), lam, dtype=torch.float32, device=q.device)
+    dev = q.device
+    n_chunks = d // chunk_d
+    nq, nw = Qp // block_q, Wp // block_w
+    q = q.contiguous()
+    w = w.contiguous()
+    lanes = [
+        _cuda_lane(tq, Qp, torch.float32, dev), _cuda_lane(tw, Wp, torch.float32, dev),
+        _cuda_lane(uq, Qp, torch.int32, dev), _cuda_lane(uw, Wp, torch.int32, dev),
+    ]
+    norms = [sqq.float().contiguous(), sqw.float().contiguous()]
+    if norms[0].shape != (Qp, n_chunks) or norms[1].shape != (Wp, n_chunks):
+        raise ValueError("suffix norms must be (rows, d // chunk_d)")
+    multi = [
+        _cuda_lane(sq, Qp, torch.int32, dev), _cuda_lane(sw, Wp, torch.int32, dev),
+        _cuda_lane(theta_q, Qp, torch.float32, dev),
+        _cuda_lane(lam_q, Qp, torch.float32, dev),
+    ]
+    g = None if gate is None else _cuda_lane(gate, nq * nw, torch.int32, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    cand_idx = torch.empty((nq, nw, tile_k), **i32)
+    cand_score = torch.empty((nq, nw, tile_k), dtype=torch.float32, device=dev)
+    emitted = torch.empty((nq, nw), **i32)
+    row_hits = torch.empty((nq, nw, block_q), **i32)
+    iters = torch.empty((nq, nw), **i32)
+    err = _lib().sssj_cand_launch(
+        q.data_ptr(), w.data_ptr(), *map(_ptr, lanes), *map(_ptr, norms),
+        *map(_ptr, multi), _ptr(g), cand_idx.data_ptr(),
+        cand_score.data_ptr(), emitted.data_ptr(), row_hits.data_ptr(),
+        iters.data_ptr(), Qp, Wp, d, chunk_d, tile_k, theta, lam,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"sssj_cand kernel launch failed: CUDA error {err}")
+    sssj_join_candidates_kernel_call.launches += 1
+    return cand_idx, cand_score, emitted, row_hits, iters
+
+
+sssj_join_candidates_kernel_call.launches = 0

@@ -1,0 +1,212 @@
+"""Public join surface: padding, suffix norms, gate, kernel, decode.
+
+Counterpart of ``repro.kernels.sssj_join.ops``'s hierarchical emission,
+:func:`sssj_join_candidates`.  Two implementations give identical
+candidate buffers:
+
+  * ``impl=None`` — the kernel path (counterpart of ``"pallas"``): the
+    strip gate and the tile join with in-kernel select, as CUDA kernels
+    on CUDA tensors and as their plain versions on CPU tensors;
+  * ``"dense"`` — the oracle: full ``(Q, W)`` reference scores, then
+    :func:`~.compact.tile_candidates`.  Sub-block inputs always take it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..._device import DeviceLike, resolve_device
+from .compact import PairCandidates, tile_candidates
+from .gate import StripSummary, strip_gate
+from .kernel import NEG_UID, sssj_join_candidates_kernel_call
+from .ref import sssj_join_ref
+
+__all__ = [
+    "JoinCandidates",
+    "NEG_UID",
+    "sssj_join_candidates",
+    "suffix_chunk_norms",
+]
+
+
+def suffix_chunk_norms(x: torch.Tensor, chunk_d: int) -> torch.Tensor:
+    """``out[i, k] = ‖x_i restricted to chunks > k‖`` (f32, (n, n_chunks)):
+    after chunks 0..k the unseen remainder of a dot product is bounded by
+    ``out_q[i, k] * out_w[j, k]``."""
+    n, d = x.shape
+    sq = (x.float() ** 2).reshape(n, d // chunk_d, chunk_d).sum(-1)
+    suffix = torch.flip(torch.cumsum(torch.flip(sq, [1]), 1), [1])
+    excl = torch.nn.functional.pad(suffix[:, 1:], (0, 1))
+    return torch.sqrt(excl)
+
+
+def _pad_rows(x: torch.Tensor, mult: int, fill=0) -> torch.Tensor:
+    pad = (-x.shape[0]) % mult
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+
+
+class JoinCandidates(NamedTuple):
+    """Level-1 join output: per-tile candidates plus the exact per-row hit
+    mask.  ``cands`` segments are tiles in (q-tile, w-tile) row-major
+    order; ``row_mask (Q,)`` derives from counts, so it is exact when
+    ``tile_k`` overflows; ``iters (nq, nw)`` is the pruning telemetry;
+    ``gate_stats (3,)`` is ``[skipped_time, skipped_l2, strips_survived]``
+    (zeros when no gate ran)."""
+
+    cands: PairCandidates
+    row_mask: torch.Tensor
+    iters: torch.Tensor
+    gate_stats: Optional[torch.Tensor] = None
+
+
+def _kernel_candidates(cand_idx, cand_score, emitted, uqp, uwp, block_q, block_w):
+    """Decode the kernel's in-tile flat indices into uid-level candidates."""
+    nq, nw, K = cand_idx.shape
+    valid = cand_idx >= 0
+    idx = torch.clamp(cand_idx, min=0).long()
+    dev = cand_idx.device
+    ti = torch.arange(nq, device=dev)[:, None, None]
+    tj = torch.arange(nw, device=dev)[None, :, None]
+    qi = ti * block_q + idx // block_w
+    wi = tj * block_w + idx % block_w
+    t = nq * nw
+    return PairCandidates(
+        uid_a=torch.where(valid, uqp[qi], -1).int().reshape(t, K),
+        uid_b=torch.where(valid, uwp[wi], -1).int().reshape(t, K),
+        score=torch.where(valid, cand_score, 0.0).reshape(t, K),
+        kept=torch.clamp(emitted, max=K).int().reshape(t),
+        emitted=emitted.int().reshape(t),
+    )
+
+
+def _lane(x, dtype, dev) -> Optional[torch.Tensor]:
+    return None if x is None else torch.as_tensor(x, device=dev).reshape(-1).to(dtype)
+
+
+def sssj_join_candidates(
+    q, w, tq, tw, uq, uw,
+    *,
+    theta: float,
+    lam: float,
+    tile_k: int = 256,
+    block_q: int = 128,
+    block_w: int = 128,
+    chunk_d: int = 128,
+    impl: Optional[str] = None,
+    sq=None,
+    sw=None,
+    theta_q=None,
+    lam_q=None,
+    summary: Optional[StripSummary] = None,
+    device: DeviceLike = None,
+) -> JoinCandidates:
+    """Blocked join with hierarchical (level-1) emission; no dense matrix
+    on the kernel path.
+
+    Inputs (arrays or tensors) are moved to ``device`` (``None`` = CUDA).
+    ``tile_k`` caps the candidates one tile keeps (overflow is counted in
+    ``cands.emitted - cands.kept``).  ``impl`` is ``None`` (kernel path) or
+    ``"dense"``.  Stream lanes ``sq/sw`` and per-row ``theta_q/lam_q``
+    follow the reference.  ``summary`` (the window's strip aggregates)
+    turns on the pre-launch gate for the kernel path; the dense oracle
+    ignores it.  Gating never changes the emitted candidates.
+    """
+    if impl == "scan":
+        raise NotImplementedError(
+            "impl='scan' is not ported yet (ROADMAP queue 1, item 1)"
+        )
+    if impl not in (None, "dense"):
+        raise ValueError(f"unknown sssj_join_candidates impl {impl!r}")
+    if (theta_q is None) != (lam_q is None):
+        raise ValueError("theta_q and lam_q must be passed together")
+    if (sq is None) != (sw is None):
+        raise ValueError("sq and sw must be passed together")
+    if theta_q is not None and sq is None:
+        raise ValueError("per-row (theta_q, lam_q) requires stream lanes")
+    dev = resolve_device(device)
+    q = torch.as_tensor(q, device=dev)
+    w = torch.as_tensor(w, device=dev)
+    tq, tw = _lane(tq, torch.float32, dev), _lane(tw, torch.float32, dev)
+    uq, uw = _lane(uq, torch.int32, dev), _lane(uw, torch.int32, dev)
+    sq, sw = _lane(sq, torch.int32, dev), _lane(sw, torch.int32, dev)
+    theta_q = _lane(theta_q, torch.float32, dev)
+    lam_q = _lane(lam_q, torch.float32, dev)
+    # pruning scalars come from the UNPADDED rows: the row padding below
+    # uses inert fills (θ=2 never emits, λ=0 never decays) that would
+    # otherwise loosen the min-based bounds
+    th_min = theta if theta_q is None else theta_q.min()
+    lam_min = lam if lam_q is None else lam_q.min()
+    # time extremes for the gate, also unpadded: the tq pad fill 0.0 would
+    # pin tq_lo to 0
+    tq_lo, tq_hi = tq.min(), tq.max()
+    no_gate_stats = torch.zeros(3, dtype=torch.int32, device=dev)
+
+    Q, d = q.shape
+    W = w.shape[0]
+    # sub-block inputs take the dense oracle (a launch would be all padding)
+    if Q < block_q or W < block_w or d < chunk_d:
+        impl = "dense"
+    n_chunks = max(d // chunk_d, 1)
+
+    if impl == "dense":
+        col = lambda x: None if x is None else x[:, None]  # noqa: E731
+        scores = sssj_join_ref(
+            q, w, tq[:, None], tw[:, None], uq[:, None], uw[:, None],
+            theta=theta, lam=lam, sq=col(sq), sw=col(sw),
+            theta_q=col(theta_q), lam_q=col(lam_q),
+        )
+        cands, row_mask = tile_candidates(
+            scores, uq, uw, block_q=block_q, block_w=block_w, tile_k=tile_k
+        )
+        iters = torch.full(
+            (-(-Q // block_q), -(-W // block_w)), n_chunks,
+            dtype=torch.int32, device=dev,
+        )
+        return JoinCandidates(cands, row_mask, iters, no_gate_stats)
+
+    pad_d = (-d) % chunk_d
+    if pad_d:
+        q = torch.nn.functional.pad(q, (0, pad_d))
+        w = torch.nn.functional.pad(w, (0, pad_d))
+    qp = _pad_rows(q.float(), block_q)
+    wp = _pad_rows(w.float(), block_w)
+    tqp = _pad_rows(tq, block_q)
+    twp = _pad_rows(tw, block_w)
+    uqp = _pad_rows(uq, block_q, fill=NEG_UID)
+    uwp = _pad_rows(uw, block_w, fill=NEG_UID)
+    # inert fills: padded rows carry uid = -1 so they never emit, and the
+    # θ/λ fills cannot loosen any bound either
+    sqp = None if sq is None else _pad_rows(sq, block_q, fill=NEG_UID)
+    swp = None if sw is None else _pad_rows(sw, block_w, fill=NEG_UID)
+    thp = None if theta_q is None else _pad_rows(theta_q, block_q, fill=2.0)
+    lmp = None if lam_q is None else _pad_rows(lam_q, block_q, fill=0.0)
+
+    gate, gate_stats = None, no_gate_stats
+    if summary is not None:
+        gate, gate_stats = strip_gate(
+            qp, summary, block_q=block_q, chunk_d=chunk_d, tq_lo=tq_lo,
+            tq_hi=tq_hi, th_min=th_min, lam_min=lam_min, device=dev,
+        )
+
+    cand_idx, cand_score, emitted, row_hits, iters = (
+        sssj_join_candidates_kernel_call(
+            qp, wp, tqp[:, None], twp[:, None], uqp[:, None], uwp[:, None],
+            suffix_chunk_norms(qp, chunk_d), suffix_chunk_norms(wp, chunk_d),
+            theta=theta, lam=lam, block_q=block_q, block_w=block_w,
+            chunk_d=chunk_d, tile_k=tile_k,
+            sq=None if sqp is None else sqp[:, None],
+            sw=None if swp is None else swp[:, None],
+            theta_q=None if thp is None else thp[:, None],
+            lam_q=None if lmp is None else lmp[:, None],
+            gate=None if gate is None else gate.int(),
+        )
+    )
+    cands = _kernel_candidates(
+        cand_idx, cand_score, emitted, uqp, uwp, block_q, block_w
+    )
+    row_mask = (row_hits > 0).any(1).reshape(-1)[:Q]
+    return JoinCandidates(cands, row_mask, iters, gate_stats)

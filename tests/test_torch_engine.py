@@ -1,0 +1,188 @@
+"""The port's StreamEngine on the CPU against ``repro.engine.StreamEngine``.
+
+The same numpy-seeded stream goes through the reference engine (Pallas
+kernel in interpret mode, or the dense oracle) and the port's engine with
+``device="cpu"`` (the kernels' plain versions).  Tolerances: drained uids,
+row masks, ``stats()`` and ``engine/prune/*`` exact; scores ``atol=1e-5``.
+Pair sets are held identical outside an ε-band of 1e-5 around θ; on
+these streams no pair lies in the band, which the tests check.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from repro.engine import EngineConfig as JConfig
+from repro.engine import StreamEngine as JEngine
+from repro_torch.data import dense_embedding_stream, topic_drift_stream
+from repro_torch.engine import EngineConfig, StreamEngine
+from repro_torch.engine.window import window_from_numpy, window_to_numpy
+
+SCORE_ATOL = 1e-5
+BAND = 1e-5
+CPU = "cpu"
+_SCHEMA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "metrics_schema.json")
+
+
+def _cfg_kw(**kw):
+    base = dict(theta=0.8, lam=0.05, capacity=512, d=64, micro_batch=32,
+                max_pairs=1024, block_q=32, block_w=32, chunk_d=32)
+    base.update(kw)
+    return base
+
+
+def _run(eng, vecs, ts, step):
+    for i in range(0, len(vecs), step):
+        eng.push(vecs[i:i + step], ts[i:i + step])
+    return eng.drain_arrays(return_masks=True)
+
+
+def _assert_same_emission(got, want, theta):
+    ua, ub, sc, mk = got
+    ja, jb, js, jm = want
+    gp = dict(zip(zip(ua.tolist(), ub.tolist()), sc.tolist()))
+    jp = dict(zip(zip(ja.tolist(), jb.tolist()), js.tolist()))
+    differ = gp.keys() ^ jp.keys()
+    assert all(abs({**gp, **jp}[k] - theta) <= BAND for k in differ), differ
+    assert not differ            # and none of these streams has band pairs
+    # same pairs in the same drain order (micro-batch, segment, rank)
+    np.testing.assert_array_equal(ua, ja)
+    np.testing.assert_array_equal(ub, jb)
+    np.testing.assert_allclose(sc, js, atol=SCORE_ATOL)
+    np.testing.assert_array_equal(mk, jm)
+
+
+def _prune(m):
+    return {k: v for k, v in m.items() if k.startswith("engine/prune/")}
+
+
+@pytest.mark.parametrize(
+    "kw,stream",
+    [
+        (dict(), "dup"),                                   # gate on, no wrap
+        (dict(capacity=64, lam=0.005), "dup"),             # wrap over live slots
+        (dict(l2_gate=False), "dup"),                      # ungated kernel path
+        (dict(d=200, chunk_d=64), "dup"),                  # ragged d
+        (dict(tile_k=4), "burst"),                         # tile_k overflow
+        (dict(max_pairs=8), "burst"),                      # max_pairs overflow
+        (dict(d=64, theta=0.7, lam=0.01, capacity=256), "topic"),  # l2 kills
+    ],
+)
+def test_engine_matches_reference_pallas(kw, stream):
+    cfg = _cfg_kw(**kw)
+    d = cfg["d"]
+    if stream == "dup":
+        vecs, ts = dense_embedding_stream(320, d, seed=7, rate=2.0)
+    elif stream == "burst":     # dense near-duplicate chains
+        vecs, ts = dense_embedding_stream(320, d, seed=7, rate=20.0, dup_frac=0.9)
+    else:
+        vecs, ts = topic_drift_stream(384, d, n_topics=8, seg=64, seed=3, rate=4.0)
+    want_eng = JEngine(JConfig(join_impl="pallas", **cfg))
+    got_eng = StreamEngine(EngineConfig(**cfg), device=CPU)
+    want = _run(want_eng, vecs, ts, 80)      # 80 = 2.5 micro-batches: padding
+    got = _run(got_eng, vecs, ts, 80)
+    _assert_same_emission(got, want, cfg["theta"])
+    assert got_eng.stats() == want_eng.stats()
+    assert _prune(got_eng.metrics()) == _prune(want_eng.metrics())
+    if kw.get("capacity") == 64:
+        assert got_eng.stats()["window_overflow"] > 0
+    if "tile_k" in kw or "max_pairs" in kw:
+        assert got_eng.pairs_dropped > 0
+    if stream == "topic":
+        assert got_eng.metrics()["engine/prune/tiles_skipped_l2"] > 0
+    got_eng.close()
+    want_eng.close()
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(capacity=96, tile_k=4)])
+def test_dense_impl_matches_reference_dense(kw):
+    cfg = _cfg_kw(join_impl="dense", **kw)
+    vecs, ts = dense_embedding_stream(256, 64, seed=5, rate=2.0)
+    want_eng = JEngine(JConfig(**cfg))
+    got_eng = StreamEngine(EngineConfig(**cfg), device=CPU)
+    _assert_same_emission(_run(got_eng, vecs, ts, 64),
+                          _run(want_eng, vecs, ts, 64), cfg["theta"])
+    assert got_eng.stats() == want_eng.stats()
+    assert _prune(got_eng.metrics()) == _prune(want_eng.metrics())
+
+
+def test_kernel_path_matches_dense_path():
+    """Gated kernel path and dense oracle drain the same pairs."""
+    vecs, ts = dense_embedding_stream(320, 64, seed=2, rate=2.0)
+    runs = []
+    for impl in (None, "dense"):
+        eng = StreamEngine(EngineConfig(**_cfg_kw(join_impl=impl)), device=CPU)
+        runs.append(_run(eng, vecs, ts, 64))
+    _assert_same_emission(runs[0], runs[1], 0.8)
+
+
+@pytest.mark.parametrize("split", [1, 37, 96, 320])
+def test_split_invariance(split):
+    """Emission does not depend on how the stream is cut into requests."""
+    vecs, ts = dense_embedding_stream(320, 64, seed=4, rate=2.0)
+    ref = _run(StreamEngine(EngineConfig(**_cfg_kw()), device=CPU), vecs, ts, 64)
+    got = _run(StreamEngine(EngineConfig(**_cfg_kw()), device=CPU), vecs, ts, split)
+    _assert_same_emission(got, ref, 0.8)
+
+
+@pytest.mark.parametrize("gate", [True, False])
+def test_engine_continues_from_reference_window(gate):
+    """A mid-stream reference window, carried across, continues to the
+    same pairs and the same final window as the reference engine."""
+    cfg = _cfg_kw(capacity=128, l2_gate=gate)
+    vecs, ts = dense_embedding_stream(320, 64, seed=8, rate=2.0)
+    want_eng = JEngine(JConfig(join_impl="pallas", **cfg))
+    for i in range(0, 160, 80):
+        want_eng.push(vecs[i:i + 80], ts[i:i + 80])
+    want_eng.drain_arrays()
+    got_eng = StreamEngine(EngineConfig(**cfg), device=CPU)
+    got_eng.state = window_from_numpy(want_eng.state, device=CPU)
+    got_eng._next_uid = want_eng._next_uid
+    want = _run(want_eng, vecs[160:], ts[160:], 80)
+    got = _run(got_eng, vecs[160:], ts[160:], 80)
+    _assert_same_emission(got, want, cfg["theta"])
+    final = window_to_numpy(got_eng.state)
+    for name in ("uids", "ts", "vecs", "sids"):
+        np.testing.assert_array_equal(final[name], np.asarray(getattr(want_eng.state, name)))
+    assert final["cursor"] == int(want_eng.state.cursor)
+    assert final["overflow"] == int(want_eng.state.overflow)
+
+
+def test_metric_names_follow_pinned_schema():
+    with open(_SCHEMA) as f:
+        schema = json.load(f)
+    pinned = {k: v for k, v in schema.items() if k.startswith("engine/")}
+    eng = StreamEngine(EngineConfig(**_cfg_kw()), device=CPU)
+    assert eng.registry.schema() == pinned
+
+
+@pytest.mark.parametrize(
+    "kw,exc",
+    [
+        (dict(theta=0.0), ValueError),
+        (dict(lam=-1.0), ValueError),
+        (dict(micro_batch=1024), ValueError),
+        (dict(block_w=0), ValueError),
+        (dict(join_impl="bogus"), ValueError),
+        (dict(join_impl="dense", l2_gate=True), ValueError),
+        (dict(join_impl="scan"), NotImplementedError),
+        (dict(emit_dense=True), NotImplementedError),
+        (dict(eviction="dead"), NotImplementedError),
+        (dict(eviction="lru"), ValueError),
+    ],
+)
+def test_config_validation(kw, exc):
+    with pytest.raises(exc):
+        EngineConfig(**_cfg_kw(**kw))
+
+
+def test_reference_rejects_the_same_invalid_configs():
+    """The validation the port copied: what the port raises ValueError
+    for, the reference rejects as well."""
+    for kw in (dict(theta=0.0), dict(micro_batch=1024),
+               dict(join_impl="dense", l2_gate=True), dict(eviction="lru")):
+        with pytest.raises(ValueError):
+            JConfig(**_cfg_kw(**kw))

@@ -1,0 +1,185 @@
+"""Boundaries of the PyTorch port.
+
+* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither
+  ``jax`` nor anything of ``repro``: checked in a fresh interpreter and by
+  a static scan.
+* Entry points default to CUDA and raise without a GPU instead of
+  carrying on on the CPU; a kernel wrapper refuses a device it has no
+  kernel for; ``chip_smoke.py`` fails without a GPU and alone.
+* The modules the port copied from ``repro`` still agree with their
+  originals on the same inputs (exact: the same numpy code).
+"""
+
+import math
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.similarity import time_horizon as j_time_horizon
+from repro.data import synth as jsynth
+from repro.obs import MetricsRegistry as JRegistry
+from repro_torch.core.similarity import time_horizon
+from repro_torch.data import synth as tsynth
+from repro_torch.engine import EngineConfig, StreamEngine
+from repro_torch.kernels.sssj_join import gate as tgate
+from repro_torch.kernels.sssj_join import kernel as tkernel
+from repro_torch.kernels.sssj_join import ops as tops
+from repro_torch.obs import MetricsRegistry
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PORT = os.path.join(_ROOT, "src", "repro_torch")
+_SMOKE = os.path.join(_ROOT, "chip_smoke.py")
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)|"
+    r"from\s+repro\b(?!_torch))",
+    re.MULTILINE,
+)
+
+
+def _port_sources():
+    out = [_SMOKE]
+    for dirpath, _, files in os.walk(_PORT):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.obs, repro_torch.data\n"
+        "import repro_torch.kernels.sssj_join, repro_torch.kernels._build\n"
+        "import repro_torch.engine\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: os.path.relpath(p, _ROOT)
+)
+def test_no_jax_or_repro_import_statement(path):
+    with open(path, encoding="utf-8") as f:
+        src = f.read()
+    assert not _FORBIDDEN.search(src), path
+
+
+def test_port_sources_found():
+    names = {os.path.basename(p) for p in _port_sources()}
+    assert {"engine.py", "window.py", "kernel.py", "gate.py", "ops.py",
+            "chip_smoke.py"} <= names
+
+
+def _no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_engine_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
+    _no_gpu(monkeypatch)
+    cfg = EngineConfig(theta=0.9, lam=0.1, capacity=64, d=8, micro_batch=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamEngine(cfg)
+    StreamEngine(cfg, device="cpu").close()    # the explicit CPU path works
+
+
+def test_join_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
+    _no_gpu(monkeypatch)
+    x = np.zeros((4, 8), np.float32)
+    t = np.zeros(4, np.float32)
+    u = np.arange(4, dtype=np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tops.sssj_join_candidates(x, x, t, t, u, u, theta=0.9, lam=0.1)
+
+
+def test_gate_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
+    _no_gpu(monkeypatch)
+    s = tgate.init_strip_summary(64, 8, block_w=16, chunk_d=8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgate.strip_gate(np.zeros((16, 8), np.float32), s, block_q=16,
+                         chunk_d=8, tq_lo=0.0, tq_hi=1.0, th_min=0.9,
+                         lam_min=0.1)
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    """A tensor that is neither on the CPU nor on CUDA gets no fallback."""
+    m = dict(device="meta")
+    q = torch.empty((128, 128), **m)
+    lane = torch.empty((128, 1), **m)
+    with pytest.raises(ValueError, match="no tile-join kernel"):
+        tkernel.sssj_join_candidates_kernel_call(
+            q, q, lane, lane, lane, lane, torch.empty((128, 1), **m),
+            torch.empty((128, 1), **m), theta=0.9, lam=0.1, block_q=128,
+            block_w=128, chunk_d=128, tile_k=8,
+        )
+    with pytest.raises(ValueError, match="no gate kernel"):
+        tgate.gate_ub(q, lane, q, lane, block_q=128)
+    assert tkernel.sssj_join_candidates_kernel_call.launches == 0
+    assert tgate.gate_ub.launches == 0
+
+
+def _run_smoke(cwd, script):
+    # no card visible to the child, whatever machine runs the test
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, script], cwd=cwd, capture_output=True,
+                          text=True, env=env, timeout=120)
+
+
+def test_chip_smoke_fails_without_gpu():
+    res = _run_smoke(_ROOT, _SMOKE)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """Alone in a directory it fails even before looking for a card."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(_SMOKE, alone)
+    res = _run_smoke(str(tmp_path), str(alone))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("theta,lam", [(0.9, 1e-3), (0.5, 0.2), (1.0, 0.5), (0.8, 0.0)])
+def test_time_horizon_copy_agrees(theta, lam):
+    got, want = time_horizon(theta, lam), j_time_horizon(theta, lam)
+    assert got == want or (math.isinf(got) and math.isinf(want))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(signed=False, dup_frac=0.5)])
+def test_dense_embedding_stream_copy_agrees(kw):
+    for got, want in zip(tsynth.dense_embedding_stream(200, 24, seed=3, **kw),
+                         jsynth.dense_embedding_stream(200, 24, seed=3, **kw)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_topic_drift_stream_copy_agrees():
+    for got, want in zip(tsynth.topic_drift_stream(300, 32, seg=50, seed=2),
+                         jsynth.topic_drift_stream(300, 32, seg=50, seed=2)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_registry_copy_agrees():
+    def publish(reg):
+        reg.counter("engine/n_items").set(7)
+        reg.counter("engine/pairs_emitted").inc(3)
+        reg.gauge("engine/ratio").set(0.25)
+
+    got, want = MetricsRegistry(), JRegistry()
+    for reg in (got, want):
+        reg.register_collector(publish)
+    assert got.snapshot() == want.snapshot()
+    assert got.schema() == want.schema()
+    with pytest.raises(TypeError):
+        got.gauge("engine/n_items")
