@@ -8,15 +8,19 @@ the result line:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    kernels built from ``src/repro_torch/kernels/csrc`` by ``nvcc``;
-2. every kernel of the main path against its plain PyTorch version, on
-   the card, at the shapes the main path gives it (integers exact, floats
-   within ``FLOAT_TOL``), with CUDA-event times;
+2. every kernel against its plain PyTorch version, on the card, at the
+   shapes its path gives it (integers exact, floats within ``FLOAT_TOL``
+   outside a ``BAND`` around θ, which is reported), with CUDA-event times;
 3. the main path: ``StreamEngine`` at ``capacity=262144, d=1024`` over a
-   near-duplicate stream long enough to wrap the ring, with both kernels'
+   near-duplicate stream long enough to wrap the ring, with the kernels'
    launch counters read around the run, held against the same stream
    through ``join_impl="dense"`` on the card;
-4. the ``kernels`` line: launches, error, times and bound of each kernel;
-5. ``{"ok": true, "device": {...}}`` as the last line.
+4. the dense-emission path: the same engine and stream with
+   ``emit_dense=True`` (the dense tile-join kernel and the row-major
+   compaction), held against both runs of phase 3;
+5. the ``kernels`` line: launches, error, times and bound of each kernel,
+   the launches counted over the run of its own path;
+6. ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of the JAX package, and exits non-zero without a result
 when there is no GPU or when ``src/repro_torch`` is not beside it.
@@ -142,6 +146,24 @@ def _compare_cand(name, kernel_out, plain_out) -> float:
     return err
 
 
+def _compare_dense(name, kernel_out, plain_out, theta) -> dict:
+    """``iters`` and ``counts`` exact; scores within ``FLOAT_TOL`` outside
+    the ε-band around θ, whose entries are counted and reported."""
+    import torch
+
+    (ks, ki, kc), (ps, pi, pc) = kernel_out, plain_out
+    for lab, k, p in (("iters", ki, pi), ("counts", kc, pc)):
+        if not torch.equal(k, p):
+            raise AssertionError(f"{name}: {lab} differs in {int((k != p).sum())} tiles")
+    band = ((ks - theta).abs() <= BAND) | ((ps - theta).abs() <= BAND)
+    err = float(torch.where(band, 0.0, (ks - ps).abs()).max())
+    if err > FLOAT_TOL:
+        raise AssertionError(f"{name}: score max error {err} > {FLOAT_TOL}")
+    return {"max_abs_err": err, "band_entries": int(band.sum()),
+            "band_differ": int((band & (ks != ps)).sum()),
+            "pairs": int(kc.sum()), "chunks_run": int(ki.sum()), "tiles": ki.numel()}
+
+
 def sync(dev) -> None:
     import torch
 
@@ -155,7 +177,9 @@ def phase_kernels(dev) -> dict:
     from repro_torch.kernels.sssj_join.gate import strip_gate, summarize_strips
     from repro_torch.kernels.sssj_join.kernel import (
         cand_tiles_plain,
+        dense_tiles_plain,
         sssj_join_candidates_kernel_call as cand,
+        sssj_join_kernel_call as dense,
     )
     from repro_torch.kernels.sssj_join.ops import suffix_chunk_norms
 
@@ -219,12 +243,9 @@ def phase_kernels(dev) -> dict:
     rq[:8] = rw[-8:]
     rq[MICRO:MICRO + 8] = rw[-16:-8]
     tq2, uq2 = torch.cat([tq, tq + 1.0]), torch.cat([uq, uq + MICRO])
-    run_case(
-        "ragged_d_two_q_tiles",
-        (rq, rw, col(tq2), col(tw[-8192:]), col(uq2), col(uw[-8192:]),
-         suffix_chunk_norms(rq, chunk), suffix_chunk_norms(rw, chunk)),
-        dict(base, theta=0.5), reps=0,
-    )
+    ragged_args = (rq, rw, col(tq2), col(tw[-8192:]), col(uq2), col(uw[-8192:]),
+                   suffix_chunk_norms(rq, chunk), suffix_chunk_norms(rw, chunk))
+    run_case("ragged_d_two_q_tiles", ragged_args, dict(base, theta=0.5), reps=0)
     # the multi-tenant lanes: stream ids and per-row (θ, λ)
     sid_q = torch.randint(0, 3, (MICRO,), generator=gen, device=dev, dtype=torch.int32)
     sid_w = torch.randint(0, 3, (CAPACITY,), generator=gen, device=dev, dtype=torch.int32)
@@ -251,6 +272,33 @@ def phase_kernels(dev) -> dict:
     g_ms = cuda_ms(lambda: gate_mod.gate_ub(qa, qcn, vmax, cnorm, block_q=blk), 50)
     g_plain = cuda_ms(lambda: gate_mod.gate_ub_plain(qa, qcn, vmax, cnorm, block_q=blk), 20)
 
+    # the dense-emission tile join: the window and self joins of the
+    # emit_dense path, and ragged d with two query tiles
+    dense_cases = {}
+    dkw = dict(theta=THETA, lam=LAM, block_q=blk, block_w=blk, chunk_d=chunk)
+
+    def run_dense(label, args, ckw, reps):
+        k_out = dense(*args, **ckw)
+        p_out = dense_tiles_plain(*args, **ckw)
+        sync(dev)
+        rec = _compare_dense(label, k_out, p_out, ckw["theta"])
+        if reps:
+            rec["ms"] = cuda_ms(lambda: dense(*args, **ckw), reps)
+            rec["plain_ms"] = cuda_ms(lambda: dense_tiles_plain(*args, **ckw), 3, 1)
+        dense_cases[label] = rec
+        return rec
+
+    d_win = run_dense("window", main_args, dkw, reps=20)
+    run_dense("self", (q, q, col(tq), col(tq), col(uq), col(uq), sqq, sqq),
+              dkw, reps=20)
+    run_dense("ragged_d_two_q_tiles", ragged_args, dict(dkw, theta=0.5), reps=0)
+    try:                    # the kernel takes 128 x 128 tiles, nothing else
+        dense(*main_args, **dict(dkw, block_q=64, block_w=64))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the dense kernel took 64 x 64 tiles")
+
     # bounds from this run's inputs: each input read once, each output
     # written once; the tile join's work is the chunks its tiles ran
     nq, nw = 1, CAPACITY // blk
@@ -261,18 +309,29 @@ def phase_kernels(dev) -> dict:
                + nq * nw * (tile_k * 8 + blk * 4 + 8))          # outputs
     j_flops = chunks_run * 2 * blk * blk * chunk
     j_bound, j_by = bound_ms(j_bytes, j_flops)
+    # the dense join writes its whole (Qp, Wp) output and reads what the
+    # candidate join reads, over the chunks its (ungated) tiles ran
+    d_chunks = d_win["chunks_run"]
+    d_bytes = (q.numel() * 4 + d_chunks * blk * chunk * 4
+               + CAPACITY * 4 * (2 + sqw.shape[1]) + MICRO * 4 * (2 + sqq.shape[1])
+               + MICRO * CAPACITY * 4 + nq * nw * 8)
+    d_bound, d_by = bound_ms(d_bytes, d_chunks * 2 * blk * blk * chunk)
     ns, nc = cnorm.shape
     g_bytes = 4 * (qa.numel() + qcn.numel() + vmax.numel() + cnorm.numel() + nq * ns)
     g_flops = 2 * MICRO * ns * (D + nc)
     g_bound, g_by = bound_ms(g_bytes, g_flops)
     emit({"phase": "kernels", "gate_stats": gate_stats.tolist(), "cases": cases,
-          "gate_ub": {"max_abs_err": ub_err, "ms": g_ms, "plain_ms": g_plain}})
+          "gate_ub": {"max_abs_err": ub_err, "ms": g_ms, "plain_ms": g_plain},
+          "dense_cases": dense_cases})
     return {
         "sssj_cand": {"max_abs_err": max(c["max_abs_err"] for c in cases.values()),
                       "ms": gated["ms"], "plain_ms": gated["plain_ms"],
                       "bound_ms": j_bound, "bound_by": j_by},
         "gate_ub": {"max_abs_err": ub_err, "ms": g_ms, "plain_ms": g_plain,
                     "bound_ms": g_bound, "bound_by": g_by},
+        "sssj_dense": {"max_abs_err": max(c["max_abs_err"] for c in dense_cases.values()),
+                       "ms": d_win["ms"], "plain_ms": d_win["plain_ms"],
+                       "bound_ms": d_bound, "bound_by": d_by},
     }
 
 
@@ -360,6 +419,34 @@ def _run_engine(dev, requests, n_profiled=2, **kw):
         eng.close()
 
 
+def _check_same_emission(a, b, label):
+    """Two engine runs over one stream drained the same pairs: every
+    pair finite, ≥ θ and newer-first; the pair sets equal outside the
+    ε-band around θ; common scores within ``FLOAT_TOL``; row masks equal
+    outside the rows of band pairs.  Returns ``(band pairs, max score
+    error)``."""
+    for ua, ub, sc in (a["pairs"], b["pairs"]):
+        if not (np.isfinite(sc).all() and (sc >= np.float32(THETA)).all()
+                and (ua > ub).all() and (ub >= 0).all()):
+            raise AssertionError(f"{label}: emitted pairs are not finite, ≥ θ, newer-first")
+    ap, bp = ({(x, y): s for x, y, s in zip(*(v.tolist() for v in r["pairs"]))}
+              for r in (a, b))
+    differ = ap.keys() ^ bp.keys()
+    band = {k: {**ap, **bp}[k] for k in differ}
+    outside = {k: s for k, s in band.items() if abs(s - THETA) > BAND}
+    if outside:
+        raise AssertionError(f"{label}: pair sets differ outside the ε-band: "
+                             f"{list(outside.items())[:5]}")
+    score_err = max((abs(ap[k] - bp[k]) for k in ap.keys() & bp.keys()), default=0.0)
+    if score_err > FLOAT_TOL:
+        raise AssertionError(f"{label}: pair scores differ by {score_err}")
+    band_rows = {x for x, _ in differ}
+    mask_diff = set(np.nonzero(a["mask"] != b["mask"])[0].tolist())
+    if not mask_diff <= band_rows:
+        raise AssertionError(f"{label}: row masks differ at rows {sorted(mask_diff)[:10]}")
+    return band, score_err
+
+
 def phase_main_path(dev) -> dict:
     import torch
     from repro_torch.kernels.sssj_join.gate import gate_ub
@@ -380,32 +467,13 @@ def phase_main_path(dev) -> dict:
         raise AssertionError(f"a kernel was not launched on the main path: {launches}")
     dense = _run_engine(dev, requests, join_impl="dense")
 
-    ka, kb, ks = kern["pairs"]
-    da, db, ds = dense["pairs"]
-    for ua, ub, sc in (kern["pairs"], dense["pairs"]):
-        if not (np.isfinite(sc).all() and (sc >= np.float32(THETA)).all()
-                and (ua > ub).all() and (ub >= 0).all()):
-            raise AssertionError("emitted pairs are not finite, ≥ θ, newer-first")
-    kp = dict(zip(zip(ka.tolist(), kb.tolist()), ks.tolist()))
-    dp = dict(zip(zip(da.tolist(), db.tolist()), ds.tolist()))
-    differ = kp.keys() ^ dp.keys()
-    band = {k: {**kp, **dp}[k] for k in differ}
-    outside = {k: s for k, s in band.items() if abs(s - THETA) > BAND}
-    if outside:
-        raise AssertionError(f"pair sets differ outside the ε-band: {list(outside.items())[:5]}")
-    common = kp.keys() & dp.keys()
-    score_err = max((abs(kp[k] - dp[k]) for k in common), default=0.0)
-    if score_err > FLOAT_TOL:
-        raise AssertionError(f"pair scores differ by {score_err}")
-    band_rows = {a for a, _ in differ}
-    mask_diff = set(np.nonzero(kern["mask"] != dense["mask"])[0].tolist())
-    if not mask_diff <= band_rows:
-        raise AssertionError(f"row masks differ at rows {sorted(mask_diff)[:10]}")
+    band, score_err = _check_same_emission(kern, dense, "kernel route vs dense oracle")
     for key in ("pairs_dropped_budget", "pairs_dropped_tile", "window_overflow"):
         if kern["stats"][key] != dense["stats"][key]:
             raise AssertionError(f"{key}: kernel {kern['stats'][key]} vs "
                                  f"dense {dense['stats'][key]}")
-    if kern["stats"]["n_items"] != N_ITEMS or len(kp) == 0:
+    n_pairs = len(kern["pairs"][0])
+    if kern["stats"]["n_items"] != N_ITEMS or n_pairs == 0:
         raise AssertionError("the main path emitted nothing")
     prune = {k: v for k, v in kern["metrics"].items() if k.startswith("engine/prune/")}
     emit({
@@ -416,11 +484,53 @@ def phase_main_path(dev) -> dict:
         "seconds": kern["seconds"],
         "dense_items_per_s": dense["timed_items"] / dense["seconds"],
         "dense_seconds": dense["seconds"], "peak_gib": peak_gib,
-        "pairs": len(kp), "dense_pairs": len(dp), "band_pairs": len(band),
-        "band": [[a, b, s] for (a, b), s in sorted(band.items())][:20],
+        "pairs": n_pairs, "dense_pairs": len(dense["pairs"][0]),
+        "band_pairs": len(band),
+        "band": [[x, y, sc] for (x, y), sc in sorted(band.items())][:20],
         "max_score_err": score_err, "launches": launches,
         "prune": prune, "stats": kern["stats"],
         "profile": {"kernel_path": kern["profile"], "dense_path": dense["profile"]},
+    })
+    return launches, requests, {"kernel": kern, "dense": dense}
+
+
+# --------------------------------------------------------------------- #
+# phase 4: the dense-emission path
+# --------------------------------------------------------------------- #
+def phase_dense_path(dev, requests, main_runs, smi) -> dict:
+    """``emit_dense=True`` over phase 3's stream: the dense tile join for
+    the window and self joins, then one compaction of the (mb, capacity +
+    mb) scores.  Its drained pairs must be phase 3's."""
+    from repro_torch.kernels.sssj_join.gate import gate_ub
+    from repro_torch.kernels.sssj_join.kernel import (
+        sssj_join_candidates_kernel_call,
+        sssj_join_kernel_call,
+    )
+
+    counters = {"sssj_dense": sssj_join_kernel_call,
+                "sssj_cand": sssj_join_candidates_kernel_call, "gate_ub": gate_ub}
+    for fn in counters.values():
+        fn.launches = 0
+    run = _run_engine(dev, requests, emit_dense=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_micro = sum(-(-len(v) // MICRO) for v, _ in requests)
+    if launches != {"sssj_dense": 2 * n_micro, "sssj_cand": 0, "gate_ub": 0}:
+        raise AssertionError(f"the dense path's launches: {launches}, "
+                             f"expected 2 x {n_micro} dense tile joins only")
+    checks = {}
+    for name, other in main_runs.items():
+        band, err = _check_same_emission(run, other, f"emit_dense vs {name}")
+        checks[name] = {"band_pairs": len(band), "max_score_err": err}
+    st = run["stats"]
+    if st["pairs_dropped"] or st["window_overflow"] or st["n_items"] != N_ITEMS:
+        raise AssertionError(f"dense path dropped or overflowed: {st}")
+    emit({
+        "phase": "dense_path", "nvidia_smi": smi, "n_items": N_ITEMS,
+        "timed_items": run["timed_items"],
+        "items_per_s": run["timed_items"] / run["seconds"],
+        "seconds": run["seconds"], "pairs": len(run["pairs"][0]),
+        "versus": checks, "launches": launches, "stats": st,
+        "profile": run["profile"],
     })
     return launches
 
@@ -445,10 +555,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        phase_device()
+        smi = phase_device()["smi"]
         dev = torch.device("cuda")
         kern = phase_kernels(dev)
-        launches = phase_main_path(dev)
+        launches, requests, main_runs = phase_main_path(dev)
+        launches["sssj_dense"] = phase_dense_path(
+            dev, requests, main_runs, smi)["sssj_dense"]
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": "failed", "error": f"{type(exc).__name__}: {exc}"})
         raise
@@ -459,6 +571,9 @@ def main() -> int:
         {"name": "gate_ub", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gate_ub.cu",
          "replaces": "src/repro/kernels/sssj_join/gate.py:198"},
+        {"name": "sssj_dense", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sssj_dense.cu",
+         "replaces": "src/repro/kernels/sssj_join/kernel.py:140"},
     ]
     for row in rows:
         row.update(launches=launches[row["name"]], library_ms=None,

@@ -12,6 +12,10 @@ runs them in a host loop on one CUDA stream (the reference's
      summaries it touched;
   4. adds its counts to the telemetry.
 
+With ``emit_dense=True`` (the reference's oracle path) steps 1–2 are
+instead two dense tile joins, whose ``(mb, capacity + mb)`` score matrix
+one row-major compaction packs into the buffer; no strip summary is kept.
+
 The window and telemetry tensors are updated in place where JAX donated
 the carry.  The outputs of one push go to a single-worker copy thread,
 which waits on a CUDA event recorded after the push's last micro-batch,
@@ -33,9 +37,11 @@ from .._device import DeviceLike, resolve_device
 from ..core.similarity import time_horizon
 from ..kernels.sssj_join import (
     PairBuffer,
+    compact_pairs,
     concat_candidates,
     merge_candidates,
     sssj_join_candidates,
+    sssj_join_tiles,
 )
 from ..obs import MetricsRegistry
 from .window import EVICTION_POLICIES, WindowState, init_window, push_with_overflow
@@ -64,8 +70,9 @@ class EngineConfig:
     block_q: int = 128
     block_w: int = 128
     chunk_d: int = 128
-    emit_dense: bool = False     # dense-matrix oracle path: not ported yet
+    emit_dense: bool = False     # dense-matrix compaction (oracle path)
     join_impl: Optional[str] = None  # None = kernel path, "dense" = oracle
+    use_ref: bool = False        # route joins through the dense reference
     eviction: str = "oldest"     # write-slot policy; only "oldest" is ported
     l2_gate: Optional[bool] = None  # strip gate: True/False, None = auto
     #   (on for the kernel path, where it can skip launches)
@@ -89,6 +96,11 @@ class EngineConfig:
                 f"({self.capacity}): a single micro-batch would overwrite "
                 f"its own arrivals; raise capacity or lower micro_batch"
             )
+        if self.use_ref and self.join_impl in ("pallas", "scan"):
+            raise ValueError(
+                f"use_ref routes joins through the dense reference and "
+                f"contradicts join_impl={self.join_impl!r}; drop one"
+            )
         if self.join_impl == "scan":
             raise NotImplementedError(
                 "join_impl='scan' is not ported yet (ROADMAP queue 1, item 1)"
@@ -98,16 +110,13 @@ class EngineConfig:
                 f"join_impl must be None (kernel path) or 'dense', "
                 f"got {self.join_impl!r}"
             )
-        if self.emit_dense:
-            raise NotImplementedError(
-                "emit_dense needs the dense-emission kernel, not ported yet "
-                "(ROADMAP queue 2, item 3)"
-            )
-        if self.l2_gate is True and self.join_impl == "dense":
+        if self.l2_gate is True and (
+            self.emit_dense or self.use_ref or self.join_impl == "dense"
+        ):
             raise ValueError(
                 "l2_gate=True requires a gated join path; the dense oracle "
-                "(join_impl='dense') never consults the gate — drop l2_gate "
-                "or leave it None"
+                "(emit_dense / use_ref / join_impl='dense') never consults "
+                "the gate — drop l2_gate or leave it None"
             )
         if self.eviction not in EVICTION_POLICIES:
             raise ValueError(
@@ -130,15 +139,28 @@ class EngineConfig:
         runs the pre-launch gate."""
         if self.l2_gate is not None:
             return bool(self.l2_gate)
-        return self.join_impl != "dense"
+        return not (
+            self.emit_dense or self.use_ref or self.join_impl == "dense"
+        )
+
+    @property
+    def join_kwargs(self) -> dict:
+        """kwargs for :func:`sssj_join_tiles` (the ``emit_dense`` path)."""
+        return dict(
+            theta=self.theta, lam=self.lam, block_q=self.block_q,
+            block_w=self.block_w, chunk_d=self.chunk_d, use_ref=self.use_ref,
+        )
 
     @property
     def candidate_kwargs(self) -> dict:
-        """kwargs for :func:`sssj_join_candidates`."""
+        """kwargs for :func:`sssj_join_candidates` (the default path)."""
+        impl = self.join_impl
+        if impl is None and self.use_ref:
+            impl = "dense"
         return dict(
             theta=self.theta, lam=self.lam, tile_k=self.tile_k,
             block_q=self.block_q, block_w=self.block_w, chunk_d=self.chunk_d,
-            impl=self.join_impl,
+            impl=impl,
         )
 
 
@@ -200,12 +222,24 @@ def make_micro_step(cfg: EngineConfig):
     """The per-micro-batch step: ``(state, telem, q, tq, uq, n_valid) →
     (PairBuffer, row_mask (mb,) bool)``; ``state`` and ``telem`` are
     updated in place, ``n_valid`` is a host int."""
+    kw = cfg.join_kwargs
     ckw = cfg.candidate_kwargs
     tau = cfg.tau
 
-    def micro_step(state: WindowState, telem: EngineTelemetry,
-                   q, tq, uq, n_valid: int):
+    def joins(state: WindowState, q, tq, uq):
+        """``(PairBuffer, row_mask, window-join iters, gate stats)``."""
         dev = q.device
+        if cfg.emit_dense:
+            # dense (mb, capacity + mb) scores, one row-major compaction
+            s_win, it_win, _ = sssj_join_tiles(
+                q, state.vecs, tq, state.ts, uq, state.uids, device=dev, **kw
+            )
+            s_self, _, _ = sssj_join_tiles(q, q, tq, tq, uq, uq, device=dev, **kw)
+            scores = torch.cat([s_win, s_self], 1)
+            buf = compact_pairs(scores, uq, torch.cat([state.uids, uq]),
+                                max_pairs=cfg.max_pairs)
+            return (buf, (scores > 0.0).any(1), it_win,
+                    torch.zeros(3, dtype=torch.int32, device=dev))
         # the window join consults the strip summary (None = ungated); the
         # self join never does: its one strip is this micro-batch
         jw = sssj_join_candidates(
@@ -216,7 +250,12 @@ def make_micro_step(cfg: EngineConfig):
         buf = merge_candidates(
             concat_candidates(jw.cands, js.cands), max_pairs=cfg.max_pairs
         )
-        row_mask = jw.row_mask | js.row_mask
+        return buf, jw.row_mask | js.row_mask, jw.iters, jw.gate_stats
+
+    def micro_step(state: WindowState, telem: EngineTelemetry,
+                   q, tq, uq, n_valid: int):
+        dev = q.device
+        buf, row_mask, it_win, gs = joins(state, q, tq, uq)
         # newest valid arrival: the reference point for live-slot overflow
         lanes = torch.arange(q.shape[0], device=dev)
         t_max = torch.where(lanes < n_valid, tq, -torch.inf).max()
@@ -224,10 +263,9 @@ def make_micro_step(cfg: EngineConfig):
             state, q, tq, uq, n_valid, t_max, tau, eviction=cfg.eviction,
             summary_block_w=cfg.block_w, summary_chunk_d=cfg.chunk_d,
         )
-        gs = jw.gate_stats
         for acc, inc in (
-            (telem.chunks, jw.iters.sum()),
-            (telem.tiles, jw.iters.numel()),
+            (telem.chunks, it_win.sum()),
+            (telem.tiles, it_win.numel()),
             (telem.pairs, buf.n_pairs),
             (telem.dropped, buf.n_dropped),
             (telem.dropped_tile, buf.n_dropped_tile),

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``<repo>/build/repro_torch_kernels/`` (listed in ``.gitignore``), named by
-a hash of its source and flags so an edited kernel is rebuilt, and loaded
-with ``ctypes``.  :func:`build` starts one ``nvcc`` per source, all at
+a hash of its source, the shared headers ``csrc/*.cuh`` and the flags so
+an edited kernel is rebuilt, and loaded with ``ctypes``.  :func:`build` starts one ``nvcc`` per source, all at
 once.  Nothing here runs at import time, and nothing is built on a
 machine that never launches a kernel.
 """
@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 
 __all__ = ["BUILD_DIR", "SOURCES", "build", "load"]
 
-SOURCES = ("sssj_cand", "gate_ub")
+SOURCES = ("sssj_cand", "sssj_dense", "gate_ub")
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -34,6 +34,8 @@ NVCC_FLAGS = (
 def _paths(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

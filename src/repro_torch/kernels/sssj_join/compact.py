@@ -12,6 +12,10 @@ one gather — no sort, and the survivors are the earliest pairs in
 Drop accounting is per level and never silent: ``emitted - kept`` per
 segment (``tile_k``), ``n_dropped`` (``max_pairs``) and
 ``n_dropped_tile`` (upstream losses carried into the buffer).
+
+The dense-emission oracle (``emit_dense``) keeps the reference's
+single-level route instead: :func:`compact_pairs` packs a whole dense
+score matrix, and :func:`tile_emit_counts` gives its per-tile counts.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import torch
 __all__ = [
     "PairBuffer",
     "PairCandidates",
+    "compact_pairs",
     "concat_candidates",
     "merge_candidates",
     "tile_candidates",
+    "tile_emit_counts",
 ]
 
 
@@ -149,3 +155,53 @@ def tile_candidates(
     )
     row_mask = (s > 0.0).any(1)[:Q]
     return cands, row_mask
+
+
+def compact_pairs(
+    scores: torch.Tensor,   # (Q, W) f32 — 0 where no pair, ≥ θ where emitted
+    uq: torch.Tensor,       # (Q,) i32 query uids
+    uw: torch.Tensor,       # (W,) i32 window uids aligned with score columns
+    *,
+    max_pairs: int,
+) -> PairBuffer:
+    """Dense-oracle compaction: the first ``min(total, max_pairs)`` hits
+    in row-major order, then ``-1``/0 fill.
+
+    The reference takes them with a stable ``lax.top_k`` over the 0/1
+    mask; ``torch.topk`` promises no order among ties, so this finds the
+    s-th hit with an inclusive int32 ``cumsum`` and a ``searchsorted`` for
+    targets ``1..k``, with no host sync.
+    """
+    Q, W = scores.shape
+    flat = scores.reshape(-1)
+    cum = torch.cumsum(flat > 0.0, 0, dtype=torch.int32)
+    total = cum[-1]
+    k = min(max_pairs, Q * W)
+    target = torch.arange(1, k + 1, dtype=torch.int32, device=scores.device)
+    idx = torch.clamp(torch.searchsorted(cum, target), max=Q * W - 1)
+    valid = target <= total
+    uid_a = torch.where(valid, uq.int()[idx // W], -1).int()
+    uid_b = torch.where(valid, uw.int()[idx % W], -1).int()
+    score = torch.where(valid, flat[idx], 0.0).float()
+    if k < max_pairs:
+        pad = (0, max_pairs - k)
+        uid_a = torch.nn.functional.pad(uid_a, pad, value=-1)
+        uid_b = torch.nn.functional.pad(uid_b, pad, value=-1)
+        score = torch.nn.functional.pad(score, pad)
+    n_pairs = torch.clamp(total, max=max_pairs)
+    return PairBuffer(
+        uid_a, uid_b, score, n_pairs.int(), (total - n_pairs).int(),
+        torch.zeros((), dtype=torch.int32, device=scores.device),
+    )
+
+
+def tile_emit_counts(scores: torch.Tensor, block_q: int, block_w: int) -> torch.Tensor:
+    """Per-``(block_q, block_w)``-tile counts of entries > 0 of a dense
+    score matrix (the ragged edge padded with zeros): the dense-emission
+    kernel's ``counts`` output, for the reference route."""
+    Q, W = scores.shape
+    pq, pw = (-Q) % block_q, (-W) % block_w
+    s = torch.nn.functional.pad(scores, (0, pw, 0, pq))
+    nq, nw = (Q + pq) // block_q, (W + pw) // block_w
+    m = (s > 0.0).reshape(nq, block_q, nw, block_w)
+    return m.sum((1, 3), dtype=torch.int32)

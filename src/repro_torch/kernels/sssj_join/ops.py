@@ -1,14 +1,21 @@
 """Public join surface: padding, suffix norms, gate, kernel, decode.
 
-Counterpart of ``repro.kernels.sssj_join.ops``'s hierarchical emission,
-:func:`sssj_join_candidates`.  Two implementations give identical
-candidate buffers:
+Counterpart of ``repro.kernels.sssj_join.ops``.  Two join surfaces:
 
-  * ``impl=None`` — the kernel path (counterpart of ``"pallas"``): the
-    strip gate and the tile join with in-kernel select, as CUDA kernels
-    on CUDA tensors and as their plain versions on CPU tensors;
-  * ``"dense"`` — the oracle: full ``(Q, W)`` reference scores, then
-    :func:`~.compact.tile_candidates`.  Sub-block inputs always take it.
+  * :func:`sssj_join_tiles` — dense emission: the thresholded ``(Q, W)``
+    score matrix plus per-tile ``iters`` and counts, from the dense tile
+    join (or, with ``use_ref``, the dense reference).  It serves the
+    engine's ``emit_dense`` oracle path.
+  * :func:`sssj_join_candidates` — hierarchical emission.  Two
+    implementations give identical candidate buffers:
+
+      - ``impl=None`` — the kernel path (counterpart of ``"pallas"``): the
+        strip gate and the tile join with in-kernel select;
+      - ``"dense"`` — the oracle: full ``(Q, W)`` reference scores, then
+        :func:`~.compact.tile_candidates`.
+
+Kernels run as CUDA kernels on CUDA tensors and as their plain versions
+on CPU tensors.  Sub-block inputs always take the reference route.
 """
 
 from __future__ import annotations
@@ -18,15 +25,21 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..._device import DeviceLike, resolve_device
-from .compact import PairCandidates, tile_candidates
+from .compact import PairCandidates, tile_candidates, tile_emit_counts
 from .gate import StripSummary, strip_gate
-from .kernel import NEG_UID, sssj_join_candidates_kernel_call
+from .kernel import (
+    NEG_UID,
+    sssj_join_candidates_kernel_call,
+    sssj_join_kernel_call,
+)
 from .ref import sssj_join_ref
 
 __all__ = [
     "JoinCandidates",
     "NEG_UID",
     "sssj_join_candidates",
+    "sssj_join_scores",
+    "sssj_join_tiles",
     "suffix_chunk_norms",
 ]
 
@@ -47,6 +60,74 @@ def _pad_rows(x: torch.Tensor, mult: int, fill=0) -> torch.Tensor:
     if pad == 0:
         return x
     return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+
+
+def _lane(x, dtype, dev) -> Optional[torch.Tensor]:
+    return None if x is None else torch.as_tensor(x, device=dev).reshape(-1).to(dtype)
+
+
+def sssj_join_tiles(
+    q, w, tq, tw, uq, uw,
+    *,
+    theta: float,
+    lam: float,
+    block_q: int = 128,
+    block_w: int = 128,
+    chunk_d: int = 128,
+    use_ref: bool = False,
+    device: DeviceLike = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blocked time-decayed join with dense emission and per-tile telemetry.
+
+    ``q (Q, d)``, ``w (W, d)`` unit vectors; timestamps ``tq (Q,)``,
+    ``tw (W,)``; uids ``uq``, ``uw`` (negative marks an empty slot).
+    Inputs (arrays or tensors) are moved to ``device`` (``None`` = CUDA).
+    ``use_ref`` routes through the dense reference instead of the kernel;
+    inputs smaller than one block (``Q < block_q``, ``W < block_w`` or
+    ``d < chunk_d``) take it as well.
+
+    Returns ``scores (Q, W)`` f32 — the decayed similarity where it
+    reaches θ and ``uq > uw ≥ 0``, else 0; ``iters (nq, nw)`` i32 — the
+    d-chunks each tile ran (all ``n_chunks`` on the reference route);
+    ``counts (nq, nw)`` i32 — entries > 0 per tile, over the padded grid.
+    """
+    dev = resolve_device(device)
+    q = torch.as_tensor(q, device=dev)
+    w = torch.as_tensor(w, device=dev)
+    tq, tw = _lane(tq, torch.float32, dev), _lane(tw, torch.float32, dev)
+    uq, uw = _lane(uq, torch.int32, dev), _lane(uw, torch.int32, dev)
+    Q, d = q.shape
+    W = w.shape[0]
+    if use_ref or Q < block_q or W < block_w or d < chunk_d:
+        scores = sssj_join_ref(q, w, tq[:, None], tw[:, None], uq[:, None],
+                               uw[:, None], theta=theta, lam=lam)
+        iters = torch.full(
+            (-(-Q // block_q), -(-W // block_w)), max(d // chunk_d, 1),
+            dtype=torch.int32, device=dev,
+        )
+        return scores, iters, tile_emit_counts(scores, block_q, block_w)
+
+    pad_d = (-d) % chunk_d
+    if pad_d:
+        q = torch.nn.functional.pad(q, (0, pad_d))
+        w = torch.nn.functional.pad(w, (0, pad_d))
+    qp = _pad_rows(q.float(), block_q)
+    wp = _pad_rows(w.float(), block_w)
+    scores, iters, counts = sssj_join_kernel_call(
+        qp, wp, _pad_rows(tq, block_q)[:, None], _pad_rows(tw, block_w)[:, None],
+        _pad_rows(uq, block_q, fill=NEG_UID)[:, None],
+        _pad_rows(uw, block_w, fill=NEG_UID)[:, None],
+        suffix_chunk_norms(qp, chunk_d), suffix_chunk_norms(wp, chunk_d),
+        theta=theta, lam=lam, block_q=block_q, block_w=block_w,
+        chunk_d=chunk_d,
+    )
+    return scores[:Q, :W], iters, counts
+
+
+def sssj_join_scores(*args, **kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sssj_join_tiles` without the per-tile counts."""
+    scores, iters, _ = sssj_join_tiles(*args, **kw)
+    return scores, iters
 
 
 class JoinCandidates(NamedTuple):
@@ -81,10 +162,6 @@ def _kernel_candidates(cand_idx, cand_score, emitted, uqp, uwp, block_q, block_w
         kept=torch.clamp(emitted, max=K).int().reshape(t),
         emitted=emitted.int().reshape(t),
     )
-
-
-def _lane(x, dtype, dev) -> Optional[torch.Tensor]:
-    return None if x is None else torch.as_tensor(x, device=dev).reshape(-1).to(dtype)
 
 
 def sssj_join_candidates(

@@ -119,6 +119,58 @@ def test_kernel_path_matches_dense_path():
     _assert_same_emission(runs[0], runs[1], 0.8)
 
 
+@pytest.mark.parametrize(
+    "kw,stream",
+    [
+        (dict(capacity=64, lam=0.005), "dup"),   # wrap over live slots
+        (dict(d=200, chunk_d=64), "dup"),        # ragged d
+        (dict(max_pairs=8), "burst"),            # max_pairs overflow
+        (dict(use_ref=True), "dup"),             # the dense reference route
+    ],
+)
+def test_emit_dense_matches_reference_emit_dense(kw, stream):
+    cfg = _cfg_kw(emit_dense=True, **kw)
+    d = cfg["d"]
+    rate, dup = (20.0, 0.9) if stream == "burst" else (2.0, 0.15)
+    vecs, ts = dense_embedding_stream(320, d, seed=7, rate=rate, dup_frac=dup)
+    want_eng = JEngine(JConfig(**cfg))
+    got_eng = StreamEngine(EngineConfig(**cfg), device=CPU)
+    assert got_eng.state.summary is None          # no gate on this path
+    _assert_same_emission(_run(got_eng, vecs, ts, 80),
+                          _run(want_eng, vecs, ts, 80), cfg["theta"])
+    assert got_eng.stats() == want_eng.stats()
+    assert _prune(got_eng.metrics()) == _prune(want_eng.metrics())
+    if "capacity" in kw:
+        assert got_eng.stats()["window_overflow"] > 0
+    if "max_pairs" in kw:
+        assert got_eng.stats()["pairs_dropped_budget"] > 0
+    got_eng.close()
+    want_eng.close()
+
+
+def test_emission_paths_agree():
+    """``emit_dense``, the default kernel path and ``use_ref`` drain the
+    same pairs, scores and row masks (the reference's
+    ``test_engine_emission_paths_agree``)."""
+    vecs, ts = dense_embedding_stream(192, 64, seed=11, rate=2.0)
+    runs = {}
+    for name, kw in (("dense", dict(emit_dense=True)), ("kernel", dict()),
+                     ("ref", dict(use_ref=True))):
+        eng = StreamEngine(EngineConfig(**_cfg_kw(**kw)), device=CPU)
+        runs[name] = _run(eng, vecs, ts, 80)
+        assert eng.pairs_dropped == 0
+        eng.close()
+    assert len(runs["dense"][0]) > 0
+    for name in ("kernel", "ref"):
+        got, want = runs[name], runs["dense"]
+        gp = dict(zip(zip(got[0].tolist(), got[1].tolist()), got[2].tolist()))
+        wp = dict(zip(zip(want[0].tolist(), want[1].tolist()), want[2].tolist()))
+        assert gp.keys() == wp.keys(), name
+        np.testing.assert_allclose([gp[k] for k in wp], list(wp.values()),
+                                   atol=SCORE_ATOL)
+        np.testing.assert_array_equal(got[3], want[3])
+
+
 @pytest.mark.parametrize("split", [1, 37, 96, 320])
 def test_split_invariance(split):
     """Emission does not depend on how the stream is cut into requests."""
@@ -169,7 +221,8 @@ def test_metric_names_follow_pinned_schema():
         (dict(join_impl="bogus"), ValueError),
         (dict(join_impl="dense", l2_gate=True), ValueError),
         (dict(join_impl="scan"), NotImplementedError),
-        (dict(emit_dense=True), NotImplementedError),
+        (dict(emit_dense=True, l2_gate=True), ValueError),
+        (dict(use_ref=True, l2_gate=True), ValueError),
         (dict(eviction="dead"), NotImplementedError),
         (dict(eviction="lru"), ValueError),
     ],
@@ -183,6 +236,8 @@ def test_reference_rejects_the_same_invalid_configs():
     """The validation the port copied: what the port raises ValueError
     for, the reference rejects as well."""
     for kw in (dict(theta=0.0), dict(micro_batch=1024),
-               dict(join_impl="dense", l2_gate=True), dict(eviction="lru")):
+               dict(join_impl="dense", l2_gate=True), dict(eviction="lru"),
+               dict(emit_dense=True, l2_gate=True),
+               dict(use_ref=True, l2_gate=True)):
         with pytest.raises(ValueError):
             JConfig(**_cfg_kw(**kw))
