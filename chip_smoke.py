@@ -11,6 +11,9 @@ the result line:
 2. every kernel against its plain PyTorch version, on the card, at the
    shapes its path gives it (integers exact, floats within ``FLOAT_TOL``
    outside a ``BAND`` around θ, which is reported), with CUDA-event times;
+   the join and gate kernels again at the tile edges (64, 64), (32, 128)
+   and (128, 48), and the engine at the consumers' 64 x 64 tiles against
+   its dense oracle;
 3. the main path: ``StreamEngine`` at ``capacity=262144, d=1024`` over a
    near-duplicate stream long enough to wrap the ring, with the kernels'
    launch counters read around the run, held against the same stream
@@ -18,9 +21,15 @@ the result line:
 4. the dense-emission path: the same engine and stream with
    ``emit_dense=True`` (the dense tile-join kernel and the row-major
    compaction), held against both runs of phase 3;
-5. the ``kernels`` line: launches, error, times and bound of each kernel,
+5. flash attention through ``repro_torch.kernels.flash_attention`` at
+   the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
+   qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
+   padded head dim and a non-causal case, each output held against
+   ``flash_attention_plain`` on the card, timed beside
+   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+6. the ``kernels`` line: launches, error, times and bound of each kernel,
    the launches counted over the run of its own path;
-6. ``{"ok": true, "device": {...}}`` as the last line.
+7. ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of the JAX package, and exits non-zero without a result
 when there is no GPU or when ``src/repro_torch`` is not beside it.
@@ -44,12 +53,23 @@ BAND = 1e-5            # pairs this close to θ may differ between runs
 # the tensor cores (both kernels keep IEEE f32 dot products)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # dense bf16 tensor cores: the least time of bf16 work
 
 # the main path's configuration: the near-duplicate service's traffic
 THETA, LAM = 0.9, 1e-3
 CAPACITY, D, MICRO = 262144, 1024, 128
 REQUEST, RATE = 4096, 1000.0
 N_ITEMS = CAPACITY + 65536
+# the tile edges the kernels take besides 128 x 128: the consumers' 64 x 64
+# (SSSJService, DedupFilter), unequal edges, and an edge no compiled tile
+# has (48 runs in the 64-wide one)
+TILE_EDGES = ((64, 64), (32, 128), (128, 48))
+# the engine at the consumers' geometry: SSSJService(block=64)'s
+# micro-batch, tile_k and chunk_d, at a window the card holds many times
+# over; λ keeps the ring at about 2.5 horizons, as on the main path
+EDGE_CFG = dict(theta=THETA, lam=4e-3, capacity=65536, d=256, micro_batch=64,
+                block_q=64, block_w=64, chunk_d=128, tile_k=4096)
+EDGE_ITEMS = 65536 + 16384
 
 
 def emit(obj) -> None:
@@ -70,8 +90,9 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
+             ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flops
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -90,8 +111,9 @@ def phase_device() -> dict:
     t0 = time.monotonic()
     built = _build.build()
     ptxas = {
-        name: [ln.strip() for ln in rec["log"].splitlines()
-               if "registers" in ln or "spill" in ln]
+        name: [ln.split("ptxas info    : ")[-1].strip()
+               for ln in rec["log"].splitlines()
+               if "entry function" in ln or "registers" in ln or "spill" in ln]
         for name, rec in built.items()
     }
     emit({"phase": "device", "nvidia_smi": smi,
@@ -292,12 +314,7 @@ def phase_kernels(dev) -> dict:
     run_dense("self", (q, q, col(tq), col(tq), col(uq), col(uq), sqq, sqq),
               dkw, reps=20)
     run_dense("ragged_d_two_q_tiles", ragged_args, dict(dkw, theta=0.5), reps=0)
-    try:                    # the kernel takes 128 x 128 tiles, nothing else
-        dense(*main_args, **dict(dkw, block_q=64, block_w=64))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("the dense kernel took 64 x 64 tiles")
+    edges = _tile_edge_checks(dev, gen)
 
     # bounds from this run's inputs: each input read once, each output
     # written once; the tile join's work is the chunks its tiles ran
@@ -322,7 +339,7 @@ def phase_kernels(dev) -> dict:
     g_bound, g_by = bound_ms(g_bytes, g_flops)
     emit({"phase": "kernels", "gate_stats": gate_stats.tolist(), "cases": cases,
           "gate_ub": {"max_abs_err": ub_err, "ms": g_ms, "plain_ms": g_plain},
-          "dense_cases": dense_cases})
+          "dense_cases": dense_cases, "tile_edges": edges})
     return {
         "sssj_cand": {"max_abs_err": max(c["max_abs_err"] for c in cases.values()),
                       "ms": gated["ms"], "plain_ms": gated["plain_ms"],
@@ -335,12 +352,113 @@ def phase_kernels(dev) -> dict:
     }
 
 
+def _tile_edge_checks(dev, gen) -> dict:
+    """The two tile joins and the gate bound against their plain versions
+    at each of ``TILE_EDGES``: a gated window of 40 strips with planted
+    near-duplicates, and a tight cluster that overflows ``tile_k``."""
+    import torch
+    from repro_torch.kernels.sssj_join import gate as gate_mod
+    from repro_torch.kernels.sssj_join.gate import strip_gate, summarize_strips
+    from repro_torch.kernels.sssj_join.kernel import (
+        cand_tiles_plain,
+        dense_tiles_plain,
+        kernel_tile_edge,
+        sssj_join_candidates_kernel_call as cand,
+        sssj_join_kernel_call as dense,
+    )
+    from repro_torch.kernels.sssj_join.ops import suffix_chunk_norms
+
+    col = lambda x: x[:, None]  # noqa: E731
+    chunk, out = 128, {}
+    for bq, bw in TILE_EDGES:
+        label = f"{bq}x{bw}"
+        w, tw, uw = _window(gen, 40 * bw, D, 50.0, dev)
+        q, tq, uq = _queries(gen, w, tw, uw, 2 * bq, bq // 2, dev)
+        tw[: 20 * bw] -= 1000.0          # the older half is past the horizon
+        sqq, sqw = suffix_chunk_norms(q, chunk), suffix_chunk_norms(w, chunk)
+        summary = summarize_strips(w, tw, uw, block_w=bw, chunk_d=chunk)
+        qa, qcn = q.abs(), gate_mod.chunk_norms(q, chunk)
+        ub_k = gate_mod.gate_ub(qa, qcn, summary.vmax, summary.cnorm, block_q=bq)
+        ub_p = gate_mod.gate_ub_plain(qa, qcn, summary.vmax, summary.cnorm, block_q=bq)
+        gate, _ = strip_gate(q, summary, block_q=bq, chunk_d=chunk, tq_lo=tq.min(),
+                             tq_hi=tq.max(), th_min=THETA, lam_min=LAM, device=dev)
+        args = (q, w, col(tq), col(tw), col(uq), col(uw), sqq, sqw)
+        kw = dict(theta=THETA, lam=LAM, block_q=bq, block_w=bw, chunk_d=chunk)
+        ckw = dict(kw, tile_k=64, gate=gate.int())
+        c_k, c_p = cand(*args, **ckw), cand_tiles_plain(*args, **ckw)
+        d_k, d_p = dense(*args, **kw), dense_tiles_plain(*args, **kw)
+        # a tight cluster: every tile past tile_k
+        cl = torch.randn((1, D), generator=gen, device=dev)
+        cw = cl + 0.01 * torch.randn((4 * bw, D), generator=gen, device=dev)
+        cw /= cw.norm(dim=1, keepdim=True)
+        ct = torch.linspace(0.0, 0.01, 4 * bw, device=dev)
+        cu = torch.arange(4 * bw, device=dev, dtype=torch.int32)
+        o_args = (cw[-bq:], cw, col(ct[-bq:]), col(ct), col(cu[-bq:]), col(cu),
+                  suffix_chunk_norms(cw[-bq:], chunk), suffix_chunk_norms(cw, chunk))
+        o_kw = dict(kw, tile_k=64)
+        o_k, o_p = cand(*o_args, **o_kw), cand_tiles_plain(*o_args, **o_kw)
+        sync(dev)
+        ub_err = float((ub_k - ub_p).abs().max())
+        if not ub_err <= FLOAT_TOL:
+            raise AssertionError(f"gate bound at {label}: max error {ub_err}")
+        rec = {"compiled_tile": [kernel_tile_edge(bq), kernel_tile_edge(bw)],
+               "gate_ub_max_abs_err": ub_err,
+               "cand_max_abs_err": _compare_cand(f"sssj_cand {label}", c_k, c_p),
+               "cand_pairs": int(c_k[2].sum()), "gated_tiles": int((gate == 0).sum()),
+               "chunks_run": int(c_k[4].sum()),
+               "dense": _compare_dense(f"sssj_dense {label}", d_k, d_p, THETA),
+               "overflow_max_abs_err": _compare_cand(f"sssj_cand {label} overflow",
+                                                     o_k, o_p),
+               "overflow_pairs": int(o_k[2].sum())}
+        if not (rec["cand_pairs"] > 0 and bool((o_k[2] > 64).any())
+                and rec["gated_tiles"] > 0):
+            raise AssertionError(f"tile edges {label}: the cases did not exercise "
+                                 f"pairs, gating and overflow: {rec}")
+        out[label] = rec
+    return out
+
+
+def phase_tile_edge_engine(dev) -> dict:
+    """The engine at the consumers' 64 x 64 tiles (``EDGE_CFG``) over a
+    stream that wraps the ring, held against ``join_impl="dense"`` on the
+    card as phase 3 holds the main path."""
+    from repro_torch.kernels.sssj_join.gate import gate_ub
+    from repro_torch.kernels.sssj_join.kernel import sssj_join_candidates_kernel_call
+
+    requests = _requests(EDGE_ITEMS, EDGE_CFG["d"])
+    sssj_join_candidates_kernel_call.launches = 0
+    gate_ub.launches = 0
+    kern = _run_engine(dev, requests, n_profiled=0, **EDGE_CFG)
+    launches = {"sssj_cand": sssj_join_candidates_kernel_call.launches,
+                "gate_ub": gate_ub.launches}
+    n_micro = sum(-(-len(v) // EDGE_CFG["micro_batch"]) for v, _ in requests)
+    if launches != {"sssj_cand": 2 * n_micro, "gate_ub": n_micro}:
+        raise AssertionError(f"64 x 64 engine launches {launches}, expected "
+                             f"2 x and 1 x {n_micro}")
+    dense = _run_engine(dev, requests, n_profiled=0, join_impl="dense", **EDGE_CFG)
+    band, score_err = _check_same_emission(kern, dense, "64 x 64 kernel route vs dense")
+    for key in ("pairs_dropped_budget", "pairs_dropped_tile", "window_overflow"):
+        if kern["stats"][key] != dense["stats"][key]:
+            raise AssertionError(f"64 x 64 {key}: kernel {kern['stats'][key]} vs "
+                                 f"dense {dense['stats'][key]}")
+    st = kern["stats"]
+    if st["n_items"] != EDGE_ITEMS or not len(kern["pairs"][0]) or st["window_overflow"]:
+        raise AssertionError(f"64 x 64 engine emitted nothing or overflowed: {st}")
+    rec = {"phase": "tile_edge_engine", "config": EDGE_CFG, "n_items": EDGE_ITEMS,
+           "pairs": len(kern["pairs"][0]), "dense_pairs": len(dense["pairs"][0]),
+           "band_pairs": len(band), "max_score_err": score_err,
+           "launches": launches, "items_per_s": kern["timed_items"] / kern["seconds"],
+           "dense_items_per_s": dense["timed_items"] / dense["seconds"], "stats": st}
+    emit(rec)
+    return rec
+
+
 # --------------------------------------------------------------------- #
 # phase 3: the main path
 # --------------------------------------------------------------------- #
-def _requests(n_items: int):
+def _requests(n_items: int, d: int = D):
     """The near-duplicate service's stream, made request by request: each
-    request is ``dense_embedding_stream(REQUEST, D, rate=RATE)`` (15 %
+    request is ``dense_embedding_stream(REQUEST, d, rate=RATE)`` (15 %
     planted near-duplicates of the 64 items before them) from its own
     seed, its timestamps following on from the previous request's."""
     from repro_torch.data import dense_embedding_stream
@@ -348,7 +466,7 @@ def _requests(n_items: int):
     out, t_off = [], 0.0
     for r in range(-(-n_items // REQUEST)):
         n = min(REQUEST, n_items - r * REQUEST)
-        v, t = dense_embedding_stream(n, D, seed=SEED * 100_003 + r, rate=RATE)
+        v, t = dense_embedding_stream(n, d, seed=SEED * 100_003 + r, rate=RATE)
         out.append((v, t + t_off))
         t_off = float(t[-1] + t_off)
     return out
@@ -386,32 +504,34 @@ def _profile(push_all, dev):
 
 
 def _run_engine(dev, requests, n_profiled=2, **kw):
-    """Stream ``requests`` through a fresh engine: all but the last
-    ``n_profiled`` timed (pushes and drain, host clock, ending in a device
-    sync), the last ones under the profiler.  Returns the drained pairs and
-    row masks of the whole stream."""
+    """Stream ``requests`` through a fresh engine (the main path's
+    configuration, updated by ``kw``): all but the last ``n_profiled``
+    timed (pushes and drain, host clock, ending in a device sync), the
+    last ones under the profiler.  Returns the drained pairs and row masks
+    of the whole stream."""
     from repro_torch.engine import EngineConfig, StreamEngine
 
-    eng = StreamEngine(
-        EngineConfig(theta=THETA, lam=LAM, capacity=CAPACITY, d=D,
-                     micro_batch=MICRO, **kw),
-        device=dev,
-    )
+    cfg = dict(theta=THETA, lam=LAM, capacity=CAPACITY, d=D, micro_batch=MICRO)
+    eng = StreamEngine(EngineConfig(**{**cfg, **kw}), device=dev)
 
     def push_all(reqs):
         for v, t in reqs:
             eng.push(v, t)
         return eng.drain_arrays(return_masks=True)
 
-    timed, profiled = requests[:-n_profiled], requests[-n_profiled:]
+    n_timed = len(requests) - n_profiled
+    timed, profiled = requests[:n_timed], requests[n_timed:]
     try:
         sync(dev)
         t0 = time.monotonic()
-        first = push_all(timed)
+        parts = [push_all(timed)]
         sync(dev)
         seconds = time.monotonic() - t0
-        last, prof = _profile(lambda: push_all(profiled), dev)
-        ua, ub, sc, mask = (np.concatenate(x) for x in zip(first, last))
+        prof = None
+        if profiled:
+            last, prof = _profile(lambda: push_all(profiled), dev)
+            parts.append(last)
+        ua, ub, sc, mask = (np.concatenate(x) for x in zip(*parts))
         return {"pairs": (ua, ub, sc), "mask": mask, "seconds": seconds,
                 "timed_items": sum(len(v) for v, _ in timed), "profile": prof,
                 "stats": eng.stats(), "metrics": eng.metrics()}
@@ -535,6 +655,134 @@ def phase_dense_path(dev, requests, main_runs, smi) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phase 5: flash attention
+# --------------------------------------------------------------------- #
+# (label, B, H, Hkv, S, Dh, causal, dtype): the head geometry of qwen3-0.6b
+# (src/repro/configs/qwen3_0_6b.py: 16 heads, 8 kv heads, head_dim 128) at
+# a 4096-token prefill and of qwen2.5-3b (qwen2_5_3b.py: 16 heads, 2 kv
+# heads, 2048 / 16 = 128) at 2048; a ragged S, a head dim the kernel pads
+# (80 -> 128), and a non-causal aligned case
+FLASH_CASES = (
+    ("qwen3-0.6b f32", 1, 16, 8, 4096, 128, True, "float32"),
+    ("qwen3-0.6b bf16", 1, 16, 8, 4096, 128, True, "bfloat16"),
+    ("qwen2.5-3b f32", 1, 16, 2, 2048, 128, True, "float32"),
+    ("qwen2.5-3b bf16", 1, 16, 2, 2048, 128, True, "bfloat16"),
+    ("ragged S 1000 f32", 1, 16, 8, 1000, 128, True, "float32"),
+    ("ragged S 1000 bf16", 1, 16, 8, 1000, 128, True, "bfloat16"),
+    ("head dim 80 f32", 1, 16, 8, 1024, 80, True, "float32"),
+    ("non-causal S 2048 f32", 1, 16, 8, 2048, 128, False, "float32"),
+)
+FLASH_TIMED = ("qwen3-0.6b f32", "qwen3-0.6b bf16", "qwen2.5-3b f32", "qwen2.5-3b bf16")
+FLASH_F32_TOL = 2e-5   # f32 sums in another order, at S 4096
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 numbers at ``|x|`` (8 significant bits)."""
+    import torch
+
+    mag = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _flash_plain(q, k, v, causal):
+    """``flash_attention_plain`` over the inputs as the entry point pads
+    them (blocks of min(128, round_up(S, 8)))."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    S = q.shape[2]
+    blk = min(128, -(-S // 8) * 8)
+    pad = (0, 0, 0, (-S) % blk)
+    q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
+    return flash_attention_plain(q, k, v, sm_scale=q.shape[-1] ** -0.5,
+                                 causal=causal, block_q=blk, block_k=blk)[:, :, :S]
+
+
+def phase_flash(dev, smi) -> dict:
+    """Every case of ``FLASH_CASES`` through ``flash_attention`` (the launch
+    counter read around that run only), each output held against the plain
+    version on the card: f32 within ``FLASH_F32_TOL``, bf16 within one bf16
+    ulp at the plain output's largest magnitude (the kernel's and the plain
+    version's f32 values, a few 1e-7 apart, may round to neighbouring bf16
+    numbers; near zero one such step is many ulps of the small value).  The
+    full-width cases are timed beside their plain version and one
+    ``scaled_dot_product_attention`` call on the same inputs."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_kernel_call,
+        flash_attention_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    inputs = {}
+    for label, B, H, Hkv, S, Dh, causal, dtype in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        inputs[label] = tuple(
+            torch.randn(shape, generator=gen, device=dev).to(dt)
+            for shape in ((B, H, S, Dh), (B, Hkv, S, Dh), (B, Hkv, S, Dh)))
+
+    flash_attention_kernel_call.launches = 0
+    outs = {case[0]: flash_attention(*inputs[case[0]], causal=case[6], device=dev)
+            for case in FLASH_CASES}
+    sync(dev)
+    launches = flash_attention_kernel_call.launches
+    if launches != len(FLASH_CASES):
+        raise AssertionError(f"flash attention launched {launches} times for "
+                             f"{len(FLASH_CASES)} cases")
+
+    cases = {}
+    for label, B, H, Hkv, S, Dh, causal, dtype in FLASH_CASES:
+        q, k, v = inputs[label]
+        out, plain = outs[label], _flash_plain(q, k, v, causal)
+        if out.shape != q.shape or out.dtype != q.dtype or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"flash {label}: output {tuple(out.shape)} {out.dtype}")
+        err = (out.float() - plain.float()).abs()
+        rec = {"max_abs_err": float(err.max())}
+        if dtype == "float32":
+            if not rec["max_abs_err"] <= FLASH_F32_TOL:
+                raise AssertionError(f"flash {label}: max error {rec['max_abs_err']}")
+        else:
+            tol = float(_bf16_ulp(plain.float().abs().max()))
+            rec.update(tol=tol, max_err_in_ulps=rec["max_abs_err"] / tol,
+                       differ=int((err > 0).sum()), outputs=err.numel())
+            if not rec["max_abs_err"] <= tol:
+                raise AssertionError(f"flash {label}: max error {rec['max_abs_err']} "
+                                     f"> one bf16 ulp {tol}")
+        cases[label] = rec
+
+    for label, B, H, Hkv, S, Dh, causal, dtype in FLASH_CASES:
+        if label not in FLASH_TIMED:
+            continue
+        q, k, v = inputs[label]
+        kw = dict(sm_scale=Dh ** -0.5, causal=causal, block_q=128, block_k=128)
+        rec = cases[label]
+        rec["ms"] = cuda_ms(lambda: flash_attention_kernel_call(q, k, v, **kw), 20)
+        rec["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 5, 1)
+        rec["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=Dh ** -0.5, enable_gqa=True), 20)
+        flops = (2 if causal else 4) * B * H * S * S * Dh
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, peak)
+        rec["gflop"] = flops / 1e9
+    emit({"phase": "flash", "nvidia_smi": smi, "launches": launches, "cases": cases})
+    qwen = cases["qwen3-0.6b f32"]
+    qwen_bf16 = cases["qwen3-0.6b bf16"]
+    return {
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for label, c in cases.items()
+                           if label.endswith("f32")),
+        **{key: qwen[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+        **{f"{key}_bf16": qwen_bf16[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms")},
+        "max_err_in_ulps_bf16": max(c.get("max_err_in_ulps", 0.0) for c in cases.values()),
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -558,9 +806,11 @@ def main() -> int:
         smi = phase_device()["smi"]
         dev = torch.device("cuda")
         kern = phase_kernels(dev)
+        phase_tile_edge_engine(dev)
         launches, requests, main_runs = phase_main_path(dev)
         launches["sssj_dense"] = phase_dense_path(
             dev, requests, main_runs, smi)["sssj_dense"]
+        flash = phase_flash(dev, smi)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": "failed", "error": f"{type(exc).__name__}: {exc}"})
         raise
@@ -578,6 +828,11 @@ def main() -> int:
     for row in rows:
         row.update(launches=launches[row["name"]], library_ms=None,
                    **kern[row["name"]])
+    # flash attention: the f32 qwen3-0.6b case's numbers, the bf16 ones beside
+    rows.append({"name": "flash_attn", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
+                 **flash})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 
 __all__ = ["BUILD_DIR", "SOURCES", "build", "load"]
 
-SOURCES = ("sssj_cand", "sssj_dense", "gate_ub")
+SOURCES = ("sssj_cand", "sssj_dense", "gate_ub", "flash_attn")
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (

@@ -3,46 +3,52 @@
 // Replaces the TPU kernel src/repro/kernels/sssj_join/kernel.py::_cand_kernel
 // (score core _tile_scores), launched there by
 // sssj_join_candidates_kernel_call.  One thread block owns one
-// (128 query rows x 128 window rows) tile and
+// (bq query rows x bw window rows) tile, any edge from 1 to 128, run in
+// the compiled tile <BQ, BW> (32, 64 or 128 each) that holds it, and
 //   1. runs the score core of tile_scores.cuh (decay with the masks, the
 //      tile's time and gate kill, the chunk loop with its l2 early exit);
 //   2. selects the >= theta entries in in-tile row-major order into a
 //      (tile_k,) buffer, with the true count and a per-row hit flag.
 //
 // What bounds it on an H100: the f32 multiply-adds of the live tiles
-// (2 * 128 * 128 * chunk_d per chunk run), at the 67 TFLOP/s of the CUDA
+// (2 * bq * bw * chunk_d per chunk run), at the 67 TFLOP/s of the CUDA
 // cores, since the dot products must stay in IEEE f32 (TF32 moves scores
 // by ~1e-3 and pairs across theta).  Dead tiles cost their lane loads and
 // a (tile_k,) fill.  The core's register tiling is described in
 // tile_scores.cuh.  The TPU kernel's cumsum + binary search becomes a
-// block-wide exclusive scan over per-row 4-column group counts, which
-// gives every hit its row-major rank.
+// block-wide exclusive scan over per-row column-group hit counts (groups
+// of the VN columns a thread holds side by side), which gives every hit
+// its row-major rank; the compiled tile's spare rows and columns hold no
+// hit, so they move no rank.
 #include "tile_scores.cuh"
 
 namespace {
 
 using namespace sssj;
 
-constexpr int NGROUP = BW / 4;  // 4-column groups per tile row: the scan's unit
-constexpr int PER = BQ * NGROUP / NT;  // groups scanned per thread (half a row)
-
-static_assert(PER * NT == BQ * NGROUP && PER == NGROUP / 2, "scan layout");
-static_assert(BQ * NGROUP <= 2 * SUB * LDS, "scan buffer reuses the slabs");
-
+template <class T>
 __global__ void __launch_bounds__(NT) cand_kernel(
     const TileIn in, int* __restrict__ cand_idx, float* __restrict__ cand_score,
     int* __restrict__ emitted, int* __restrict__ row_hits,
     int* __restrict__ iters, int tile_k) {
-  __shared__ __align__(16) float slab[2 * SUB * LDS];  // q | w; then the scan
-  __shared__ Lanes L;
+  constexpr int BQ = T::BQ, BW = T::BW, RM = T::RM, RN = T::RN, VN = T::VN;
+  constexpr int NGROUP = BW / VN;         // column groups per tile row: the scan's unit
+  constexpr int PER = BQ * NGROUP / NT;   // groups scanned per thread
+  constexpr int TPR = NT / BQ;            // threads that scan one row
+  static_assert(PER * NT == BQ * NGROUP && PER * TPR == NGROUP, "scan layout");
+  static_assert(BQ * NGROUP <= T::SLAB, "scan buffer reuses the slabs");
+  static_assert(RM * RN <= 64, "hit bits fit one word");
+
+  __shared__ __align__(16) float slab[T::SLAB];  // q | w; then the scan
+  __shared__ Lanes<BQ, BW> L;
   __shared__ int warp_tot[NT / 32];
 
   const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool multi = in.sidq != nullptr;
+  const int bq = in.bq, bw = in.bw;
 
-  float acc[8][8];
-  const int k = tile_scores(in, L, slab, acc);
+  float acc[RM][RN], dec[RM][RN];
+  const int k = tile_scores<T>(in, L, slab, acc, dec);
   if (tid == 0) iters[tile] = k;
 
   int* out_idx = cand_idx + tile * tile_k;
@@ -52,37 +58,39 @@ __global__ void __launch_bounds__(NT) cand_kernel(
       out_idx[s] = -1;
       out_sc[s] = 0.0f;
     }
-    if (tid < BQ) row_hits[tile * BQ + tid] = 0;
+    for (int r = tid; r < bq; r += NT) row_hits[tile * bq + r] = 0;
     if (tid == 0) emitted[tile] = 0;
     return;
   }
 
   // scores and hits: an entry emits when score >= theta_row and score > 0
+  // (a spare row's theta is +inf, a spare column's decay 0)
   uint64_t hits = 0;
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int i = row_of(ty, a);
+  for (int a = 0; a < RM; ++a) {
+    const int i = T::row(ty, a);
 #pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const float s = __fmul_rn(acc[a][b], decay_at(L, i, col_of(tx, b), multi));
+    for (int b = 0; b < RN; ++b) {
+      const float s = __fmul_rn(acc[a][b], dec[a][b]);
       acc[a][b] = s;
-      if (s >= L.th[i] && s > 0.0f) hits |= 1ull << (a * 8 + b);
+      if (s >= L.th[i] && s > 0.0f) hits |= 1ull << (a * RN + b);
     }
   }
 
-  // per (row, 4-column group) hit counts; the slabs are free after the
+  // per (row, column group) hit counts; the slabs are free after the
   // chunk loop's last barrier
   int* gcount = reinterpret_cast<int*>(slab);
+  constexpr uint64_t GROUP_BITS = (1ull << VN) - 1;
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+  for (int a = 0; a < RM; ++a)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      gcount[row_of(ty, a) * NGROUP + h * 16 + tx] =
-          __popcll((hits >> (a * 8 + h * 4)) & 0xFull);
+    for (int h = 0; h < RN / VN; ++h)
+      gcount[T::row(ty, a) * NGROUP + h * 16 + tx] =
+          __popcll((hits >> (a * RN + h * VN)) & GROUP_BITS);
   __syncthreads();
 
   // block-wide exclusive scan over the groups in row-major order: thread t
-  // owns groups [t*PER, (t+1)*PER), i.e. half of row t/2
+  // owns groups [t*PER, (t+1)*PER), a 1/TPR share of row t/TPR
   int loc[PER];
   int sum = 0;
 #pragma unroll
@@ -98,7 +106,9 @@ __global__ void __launch_bounds__(NT) cand_kernel(
     if (lane >= o) incl += n;
   }
   if (lane == 31) warp_tot[warp] = incl;
-  const int row_total = sum + __shfl_xor_sync(0xffffffffu, sum, 1);
+  int row_total = sum;
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) row_total += __shfl_xor_sync(0xffffffffu, row_total, o);
   __syncthreads();
   int run = incl - sum, total = 0;
 #pragma unroll
@@ -106,7 +116,8 @@ __global__ void __launch_bounds__(NT) cand_kernel(
     if (v < warp) run += warp_tot[v];
     total += warp_tot[v];
   }
-  if ((tid & 1) == 0) row_hits[tile * BQ + tid / 2] = row_total > 0;
+  if (tid % TPR == 0 && (T::FULL || tid / TPR < bq))
+    row_hits[tile * bq + tid / TPR] = row_total > 0;
 #pragma unroll
   for (int e = 0; e < PER; ++e) {
     gcount[tid * PER + e] = run;
@@ -116,17 +127,17 @@ __global__ void __launch_bounds__(NT) cand_kernel(
 
   // every hit goes to its row-major rank; the first tile_k are kept
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int i = row_of(ty, a);
+  for (int a = 0; a < RM; ++a) {
+    const int i = T::row(ty, a);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < RN / VN; ++h) {
       int rank = gcount[i * NGROUP + h * 16 + tx];
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int b = h * 4 + bb;
-        if ((hits >> (a * 8 + b)) & 1ull) {
+      for (int bb = 0; bb < VN; ++bb) {
+        const int b = h * VN + bb;
+        if ((hits >> (a * RN + b)) & 1ull) {
           if (rank < tile_k) {
-            out_idx[rank] = i * BW + col_of(tx, b);
+            out_idx[rank] = i * bw + T::col(tx, b);
             out_sc[rank] = acc[a][b];
           }
           ++rank;
@@ -145,27 +156,31 @@ __global__ void __launch_bounds__(NT) cand_kernel(
 
 // Shapes: q (Qp, d), w (Wp, d) f32 row-major; tq/uq (Qp,), tw/uw (Wp,);
 // sqq (Qp, n_chunks), sqw (Wp, n_chunks); the four stream lanes (sidq,
-// sidw (Wp,), thq, lmq) all null or all set; gate (Qp/128, Wp/128) or null.
-// Outputs: cand_idx/cand_score (nq, nw, tile_k), emitted/iters (nq, nw),
-// row_hits (nq, nw, 128).  Returns cudaGetLastError() after the launch.
+// sidw (Wp,), thq, lmq) all null or all set; gate (Qp/bq, Wp/bw) or null;
+// bq, bw in [1, 128].  Outputs: cand_idx/cand_score (nq, nw, tile_k),
+// emitted/iters (nq, nw), row_hits (nq, nw, bq).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int sssj_cand_launch(
     const void* q, const void* w, const void* tq, const void* tw,
     const void* uq, const void* uw, const void* sqq, const void* sqw,
     const void* sidq, const void* sidw, const void* thq, const void* lmq,
     const void* gate, void* cand_idx, void* cand_score, void* emitted,
     void* row_hits, void* iters, int Qp, int Wp, int d, int chunk_d,
-    int tile_k, float theta, float lam, void* stream) {
-  if (bad_shape(Qp, Wp, d, chunk_d) || tile_k <= 0)
+    int tile_k, int bq, int bw, float theta, float lam, void* stream) {
+  if (bad_shape(Qp, Wp, d, chunk_d, bq, bw) || tile_k <= 0)
     return (int)cudaErrorInvalidValue;
   const TileIn in{
       (const float*)q, (const float*)w, (const float*)tq, (const float*)tw,
       (const int*)uq, (const int*)uw, (const float*)sqq, (const float*)sqw,
       (const int*)sidq, (const int*)sidw, (const float*)thq,
       (const float*)lmq, (const int*)gate, d, chunk_d, d / chunk_d, theta,
-      lam};
-  const dim3 grid(Wp / BW, Qp / BQ);
-  cand_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      in, (int*)cand_idx, (float*)cand_score, (int*)emitted, (int*)row_hits,
-      (int*)iters, tile_k);
-  return (int)cudaGetLastError();
+      lam, bq, bw};
+  const dim3 grid(Wp / bw, Qp / bq);
+  return with_tile(bq, bw, [&](auto tile) {
+    using T = decltype(tile);
+    cand_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        in, (int*)cand_idx, (float*)cand_score, (int*)emitted, (int*)row_hits,
+        (int*)iters, tile_k);
+    return (int)cudaGetLastError();
+  });
 }

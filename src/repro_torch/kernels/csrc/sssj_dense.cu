@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/sssj_join/kernel.py::_kernel
 // (score core _tile_scores), launched there by sssj_join_kernel_call.
-// One thread block owns one (128 query rows x 128 window rows) tile and
+// One thread block owns one (bq query rows x bw window rows) tile, any
+// edge from 1 to 128, run in the compiled tile <BQ, BW> (32, 64 or 128
+// each) that holds it, and
 //   1. runs the score core of tile_scores.cuh (decay with the masks, the
 //      tile's time kill, the chunk loop with its l2 early exit), without
 //      stream lanes or gate, as the TPU kernel has none;
@@ -13,52 +15,67 @@
 // What bounds it on an H100: the (Qp, Wp) f32 output, which every call
 // writes in full (128 x 262,144 x 4 B = 134 MB at the engine's window,
 // 40 us at 3.35 TB/s), and the f32 multiply-adds of the live tiles (2 *
-// 128 * 128 * chunk_d per chunk run, at the 67 TFLOP/s of the CUDA
-// cores).  Design: the score core is the candidate kernel's, so the two
-// cannot drift; each thread stores its 8 rows as float4s, 16 threads
-// covering 256 contiguous bytes of a row.
+// bq * bw * chunk_d per chunk run, at the 67 TFLOP/s of the CUDA cores).
+// Design: the score core is the candidate kernel's, so the two cannot
+// drift; when the tile fills its compiled width (bw == BW) each thread
+// stores its rows as float4 (float2) runs, 16 threads covering a row's
+// contiguous bytes; a narrower tile stores its columns one by one.
 #include "tile_scores.cuh"
 
 namespace {
 
 using namespace sssj;
 
+template <class T>
 __global__ void __launch_bounds__(NT) dense_kernel(
     const TileIn in, float* __restrict__ out, int* __restrict__ iters,
     int* __restrict__ counts, int Wp) {
-  __shared__ __align__(16) float slab[2 * SUB * LDS];
-  __shared__ Lanes L;
+  constexpr int RM = T::RM, RN = T::RN, VN = T::VN;
+  __shared__ __align__(16) float slab[T::SLAB];
+  __shared__ Lanes<T::BQ, T::BW> L;
   __shared__ int tile_count;
 
   const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const size_t q0 = (size_t)blockIdx.y * BQ, w0 = (size_t)blockIdx.x * BW;
+  const int bq = in.bq, bw = in.bw;
+  const size_t q0 = (size_t)blockIdx.y * bq, w0 = (size_t)blockIdx.x * bw;
+  const bool full_width = T::FULL || bw == T::BW;
   if (tid == 0) tile_count = 0;  // tile_scores syncs before any use
 
-  float acc[8][8];
-  const int k = tile_scores(in, L, slab, acc);
+  float acc[RM][RN], dec[RM][RN];
+  const int k = tile_scores<T>(in, L, slab, acc, dec);
 
   int count = 0;
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int i = row_of(ty, a);
+  for (int a = 0; a < RM; ++a) {
+    const int i = T::row(ty, a);
+    if (!T::FULL && i >= bq) continue;
     float* row = out + (q0 + i) * Wp + w0;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v[4];
+    for (int h = 0; h < RN / VN; ++h) {
+      float v[VN];
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int b = h * 4 + bb;
+      for (int bb = 0; bb < VN; ++bb) {
+        const int b = h * VN + bb;
         float s = 0.0f;
-        if (k > 0) {
-          s = __fmul_rn(acc[a][b], decay_at(L, i, col_of(tx, b), false));
+        if (k > 0) {  // a spare column's decay is 0, so its score too
+          s = __fmul_rn(acc[a][b], dec[a][b]);
           s = s >= L.th[i] ? s : 0.0f;
         }
         v[bb] = s;
         count += s > 0.0f;
       }
-      *reinterpret_cast<float4*>(row + col_of(tx, h * 4)) =
-          make_float4(v[0], v[1], v[2], v[3]);
+      const int c = T::col(tx, h * VN);
+      if (full_width) {
+        if constexpr (VN == 4)
+          *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
+        else
+          *reinterpret_cast<float2*>(row + c) = make_float2(v[0], v[1]);
+      } else {
+#pragma unroll
+        for (int bb = 0; bb < VN; ++bb)
+          if (c + bb < bw) row[c + bb] = v[bb];
+      }
     }
   }
   if (count) atomicAdd(&tile_count, count);
@@ -72,22 +89,25 @@ __global__ void __launch_bounds__(NT) dense_kernel(
 }  // namespace
 
 // Shapes: q (Qp, d), w (Wp, d) f32 row-major; tq/uq (Qp,), tw/uw (Wp,);
-// sqq (Qp, n_chunks), sqw (Wp, n_chunks).  Outputs: out (Qp, Wp) f32,
-// iters/counts (Qp/128, Wp/128) i32, every element written.  Returns
-// cudaGetLastError() after the launch.
+// sqq (Qp, n_chunks), sqw (Wp, n_chunks); bq, bw in [1, 128].  Outputs:
+// out (Qp, Wp) f32, iters/counts (Qp/bq, Wp/bw) i32, every element
+// written.  Returns cudaGetLastError() after the launch.
 extern "C" int sssj_dense_launch(
     const void* q, const void* w, const void* tq, const void* tw,
     const void* uq, const void* uw, const void* sqq, const void* sqw,
     void* out, void* iters, void* counts, int Qp, int Wp, int d, int chunk_d,
-    float theta, float lam, void* stream) {
-  if (bad_shape(Qp, Wp, d, chunk_d)) return (int)cudaErrorInvalidValue;
+    int bq, int bw, float theta, float lam, void* stream) {
+  if (bad_shape(Qp, Wp, d, chunk_d, bq, bw)) return (int)cudaErrorInvalidValue;
   const TileIn in{
       (const float*)q, (const float*)w, (const float*)tq, (const float*)tw,
       (const int*)uq, (const int*)uw, (const float*)sqq, (const float*)sqw,
       nullptr, nullptr, nullptr, nullptr, nullptr, d, chunk_d, d / chunk_d,
-      theta, lam};
-  const dim3 grid(Wp / BW, Qp / BQ);
-  dense_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      in, (float*)out, (int*)iters, (int*)counts, Wp);
-  return (int)cudaGetLastError();
+      theta, lam, bq, bw};
+  const dim3 grid(Wp / bw, Qp / bq);
+  return with_tile(bq, bw, [&](auto tile) {
+    using T = decltype(tile);
+    dense_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        in, (float*)out, (int*)iters, (int*)counts, Wp);
+    return (int)cudaGetLastError();
+  });
 }

@@ -1,0 +1,170 @@
+"""Causal flash attention: the CUDA kernel and its plain version.
+
+Counterpart of ``repro.kernels.flash_attention.kernel``, whose TPU kernel
+``_kernel`` runs forward-only GQA attention over a grid ``(B, H, n_q,
+n_kv)`` with the kv axis innermost, carrying the online-softmax state
+(running max ``m``, normaliser ``l``, accumulator ``acc``) from one kv
+block to the next:
+
+  * ``s = (q · sm_scale) · kᵀ`` in f32; a kv block wholly in the causal
+    future of the q block (``ik·bk > iq·bq + bq − 1``) is skipped, and
+    ``col > row`` is masked to −1e30;
+  * ``m' = max(m, rowmax s)``, ``α = exp(m − m')``, ``p = exp(s − m')``,
+    ``l = l·α + Σp``, ``acc = acc·α + p·v``;
+  * ``out = acc / l`` (``l == 0`` taken as 1), in ``q``'s dtype.
+
+:func:`flash_attention_kernel_call` runs it: on a CUDA tensor it launches
+``csrc/flash_attn.cu`` (whose header says what bounds it on an H100 and
+how the design answers that) or raises; on a CPU tensor it runs
+:func:`flash_attention_plain`, the same online softmax in PyTorch, which
+is also the kernel's oracle on the card.  The kernel is compiled for the
+head dims :data:`KERNEL_HEAD_DIMS`; the wrapper pads any other head dim up
+to 256 with zero columns (``q·k`` does not change, and the extra output
+columns are sliced off).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..._device import ieee_f32
+from .._build import load
+
+__all__ = [
+    "KERNEL_HEAD_DIMS",
+    "flash_attention_kernel_call",
+    "flash_attention_plain",
+    "kernel_head_dim",
+]
+
+NEG_INF = -1e30  # the masked score and the running max's start, as the reference's
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the head dims the CUDA kernel is compiled for
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The compiled head dim that runs ``dh`` (its zero-padded width);
+    raises ``ValueError`` above the largest."""
+    for width in KERNEL_HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(
+        f"flash attention takes head dims up to {KERNEL_HEAD_DIMS[-1]}, got {dh}"
+    )
+
+
+def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
+                          block_q: int, block_k: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (same signature and output as
+    :func:`flash_attention_kernel_call`): the TPU kernel's online softmax
+    over kv blocks, in f32.  For each kv block only the q blocks it does
+    not skip are updated (rows from ``(ik·bk // bq)·bq`` on when causal)."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = H // Hkv
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    qs = q.float() * sm_scale
+    m = torch.full((B, H, Sq, 1), NEG_INF, **f32)
+    l = torch.zeros((B, H, Sq, 1), **f32)
+    acc = torch.zeros((B, H, Sq, Dh), **f32)
+    rows = torch.arange(Sq, device=dev)[:, None]
+    with ieee_f32(dev):
+        for c0 in range(0, Sk, block_k):
+            r0 = (c0 // block_q) * block_q if causal else 0
+            kb = k[:, :, c0:c0 + block_k].float().repeat_interleave(group, dim=1)
+            vb = v[:, :, c0:c0 + block_k].float().repeat_interleave(group, dim=1)
+            s = qs[:, :, r0:] @ kb.transpose(-1, -2)
+            if causal:
+                cols = c0 + torch.arange(block_k, device=dev)[None, :]
+                s = torch.where(rows[r0:] >= cols, s, NEG_INF)
+            m_prev = m[:, :, r0:]
+            m_cur = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m_prev - m_cur)
+            p = torch.exp(s - m_cur)
+            l[:, :, r0:] = l[:, :, r0:] * alpha + p.sum(dim=-1, keepdim=True)
+            acc[:, :, r0:] = acc[:, :, r0:] * alpha + p @ vb
+            m[:, :, r0:] = m_cur
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    return (acc / safe_l).to(q.dtype)
+
+
+@functools.cache
+def _launcher():
+    fn = load("flash_attn").flash_attn_launch
+    p = ctypes.c_void_p
+    fn.argtypes = [p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, block_q: int, block_k: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash attention needs q (B, H, Sq, Dh), k and v (B, Hkv, Sk, "
+            f"Dh); got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    B, H, Sq, Dh = q.shape
+    Bk, Hkv, Sk, Dk = k.shape
+    if Bk != B or Dk != Dh or H % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not "
+                         f"pair: batch and head dim must agree, H % Hkv == 0")
+    if Sq % block_q or Sk % block_k:
+        raise ValueError(f"sequence lengths ({Sq}, {Sk}) must be padded to "
+                         f"block multiples ({block_q}, {block_k})")
+    if not (q.dtype == k.dtype == v.dtype) or not q.dtype.is_floating_point:
+        raise ValueError(f"q, k, v must share one float dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    kernel_head_dim(Dh)
+
+
+def flash_attention_kernel_call(
+    q: torch.Tensor,   # (B, H, Sq, Dh)
+    k: torch.Tensor,   # (B, Hkv, Sk, Dh)
+    v: torch.Tensor,   # (B, Hkv, Sk, Dh)
+    *,
+    sm_scale: float,
+    causal: bool,
+    block_q: int,
+    block_k: int,
+) -> torch.Tensor:
+    """Flash attention over inputs padded to block multiples; returns
+    ``(B, H, Sq, Dh)`` in ``q.dtype``.  ``block_q``/``block_k`` set the
+    plain version's blocks; the kernel tiles by its own (64 × 64) and
+    masks its ragged edge, so they change only the order of summation."""
+    _check(q, k, v, block_q, block_k)
+    Dh = q.shape[-1]
+    width = kernel_head_dim(Dh)
+    if width != Dh:   # zero columns: q·k unchanged, extra outputs sliced off
+        pad = (0, width - Dh)
+        q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
+    if q.device.type == "cpu":
+        out = flash_attention_plain(q, k, v, sm_scale=sm_scale, causal=causal,
+                                    block_q=block_q, block_k=block_k)
+        return out[..., :Dh]
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the flash-attention kernel takes f32 or bf16, got {q.dtype}")
+    if any(x.device != q.device for x in (k, v)):
+        raise ValueError(f"q, k, v must all lie on {q.device}")
+    if not all(x.is_contiguous() for x in (q, k, v)):
+        raise ValueError("the flash-attention kernel takes contiguous q, k, v")
+    B, H, Sq, _ = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    err = _launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, Hkv, Sq, Sk, width, int(causal), int(q.dtype == torch.bfloat16),
+        sm_scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attn kernel launch failed: CUDA error {err}")
+    flash_attention_kernel_call.launches += 1
+    return out[..., :Dh]
+
+
+flash_attention_kernel_call.launches = 0

@@ -26,6 +26,7 @@ import torch
 
 from ..._device import DeviceLike, ieee_f32, resolve_device
 from .._build import load
+from .kernel import KERNEL_BLOCK, kernel_tile_edge
 
 __all__ = [
     "StripSummary",
@@ -38,7 +39,7 @@ __all__ = [
 ]
 
 EMPTY_TS = 3.0e30
-KERNEL_BLOCK_Q = 128  # query rows per tile in the CUDA kernel
+KERNEL_BLOCK_Q = KERNEL_BLOCK  # the query-tile edges the CUDA kernel takes
 
 
 class StripSummary(NamedTuple):
@@ -173,7 +174,7 @@ def gate_ub_plain(qa, qcn, vmax, cnorm, *, block_q: int) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = load("gate_ub")
     p = ctypes.c_void_p
-    lib.gate_ub_launch.argtypes = [p] * 5 + [ctypes.c_int] * 4 + [p]
+    lib.gate_ub_launch.argtypes = [p] * 5 + [ctypes.c_int] * 5 + [p]
     lib.gate_ub_launch.restype = ctypes.c_int
     return lib
 
@@ -185,11 +186,7 @@ def gate_ub(qa, qcn, vmax, cnorm, *, block_q: int) -> torch.Tensor:
         return gate_ub_plain(qa, qcn, vmax, cnorm, block_q=block_q)
     if qa.device.type != "cuda":
         raise ValueError(f"no gate kernel for device {qa.device}")
-    if block_q != KERNEL_BLOCK_Q:
-        raise ValueError(
-            f"the CUDA gate bound takes {KERNEL_BLOCK_Q}-row query tiles, "
-            f"got block_q={block_q}"
-        )
+    kernel_tile_edge(block_q)
     Qp, d = qa.shape
     ns, nc = cnorm.shape
     if (Qp % block_q or vmax.shape != (ns, d) or qcn.shape != (Qp, nc)
@@ -200,7 +197,7 @@ def gate_ub(qa, qcn, vmax, cnorm, *, block_q: int) -> torch.Tensor:
     ins = [x.contiguous() for x in (qa, qcn, vmax, cnorm)]
     ub = torch.empty((Qp // block_q, ns), dtype=torch.float32, device=qa.device)
     err = _lib().gate_ub_launch(
-        *(x.data_ptr() for x in ins), ub.data_ptr(), Qp, ns, d, nc,
+        *(x.data_ptr() for x in ins), ub.data_ptr(), Qp, ns, d, nc, block_q,
         torch.cuda.current_stream(qa.device).cuda_stream,
     )
     if err != 0:

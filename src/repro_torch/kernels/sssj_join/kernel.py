@@ -20,10 +20,12 @@ Then the two emissions:
     whole thresholded ``(Qp, Wp)`` matrix with per-tile counts; on a CUDA
     tensor it launches ``csrc/sssj_dense.cu``.
 
-Both CUDA kernels take 128 × 128 tiles and share the score core
+Both CUDA kernels take any tile edges ``block_q``, ``block_w`` from 1 to
+128 (:data:`KERNEL_BLOCK`), each run in the smallest compiled edge of
+:data:`KERNEL_TILES` that holds it, and share the score core
 (``csrc/tile_scores.cuh``, whose header says what bounds them on an H100
-and how the design answers that); other tiles on a CUDA tensor raise.  On
-a CPU tensor each wrapper runs its plain PyTorch version
+and how the design answers that); a larger edge on a CUDA tensor raises.
+On a CPU tensor each wrapper runs its plain PyTorch version
 (:func:`cand_tiles_plain`, :func:`dense_tiles_plain`), the same
 arithmetic, which is also the kernel's oracle on the card.
 """
@@ -44,12 +46,26 @@ __all__ = [
     "NEG_UID",
     "cand_tiles_plain",
     "dense_tiles_plain",
+    "kernel_tile_edge",
     "sssj_join_candidates_kernel_call",
     "sssj_join_kernel_call",
 ]
 
 NEG_UID = -1  # uid marking empty / padded slots
-KERNEL_BLOCK = 128  # the CUDA kernel's tile edge (block_q = block_w)
+KERNEL_BLOCK = range(1, 129)  # the tile edges the CUDA kernels take, each of block_q, block_w
+KERNEL_TILES = (32, 64, 128)  # the compiled edges; a tile runs in the smallest that holds it
+
+
+def kernel_tile_edge(edge: int) -> int:
+    """The compiled edge of :data:`KERNEL_TILES` that runs a tile edge
+    (as the launchers in ``csrc/`` pick it); raises ``ValueError`` for an
+    edge outside :data:`KERNEL_BLOCK`."""
+    if edge not in KERNEL_BLOCK:
+        raise ValueError(
+            f"the CUDA kernels take tile edges {KERNEL_BLOCK.start} to "
+            f"{KERNEL_BLOCK.stop - 1}, got {edge}"
+        )
+    return next(t for t in KERNEL_TILES if edge <= t)
 
 
 def _col(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -151,8 +167,8 @@ def dense_tiles_plain(
 
 
 _ARGTYPES = {   # pointers, ints, floats of each ``<name>_launch``, then the stream
-    "sssj_cand": (18, 5, 2),
-    "sssj_dense": (11, 4, 2),
+    "sssj_cand": (18, 7, 2),
+    "sssj_dense": (11, 6, 2),
 }
 
 
@@ -185,11 +201,8 @@ def _cuda_inputs(q, w, tq, tw, uq, uw, sqq, sqw, block_q, block_w, chunk_d):
     ``(q, w, [tq, tw, uq, uw], [sqq, sqw])`` contiguous on ``q``'s card."""
     if q.device.type != "cuda":
         raise ValueError(f"no tile-join kernel for device {q.device}")
-    if block_q != KERNEL_BLOCK or block_w != KERNEL_BLOCK:
-        raise ValueError(
-            f"the CUDA tile join takes {KERNEL_BLOCK}x{KERNEL_BLOCK} tiles, "
-            f"got block_q={block_q}, block_w={block_w}"
-        )
+    kernel_tile_edge(block_q)
+    kernel_tile_edge(block_w)
     Qp, d = q.shape
     Wp = w.shape[0]
     if (w.shape[1] != d or Qp % block_q or Wp % block_w or d % chunk_d
@@ -277,7 +290,8 @@ def sssj_join_candidates_kernel_call(
         q.data_ptr(), w.data_ptr(), *map(_ptr, lanes), *map(_ptr, norms),
         *map(_ptr, multi), _ptr(g), cand_idx.data_ptr(),
         cand_score.data_ptr(), emitted.data_ptr(), row_hits.data_ptr(),
-        iters.data_ptr(), Qp, Wp, d, chunk_d, tile_k, theta, lam,
+        iters.data_ptr(), Qp, Wp, d, chunk_d, tile_k, block_q, block_w,
+        theta, lam,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -329,7 +343,7 @@ def sssj_join_kernel_call(
     err = _launcher("sssj_dense")(
         q.data_ptr(), w.data_ptr(), *map(_ptr, lanes), *map(_ptr, norms),
         scores.data_ptr(), iters.data_ptr(), counts.data_ptr(),
-        Qp, Wp, d, chunk_d, theta, lam,
+        Qp, Wp, d, chunk_d, block_q, block_w, theta, lam,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -86,6 +86,21 @@ def test_dense_tiles_plain_matches_pallas_interpret(
     assert tkernel.sssj_join_kernel_call.launches == 0
 
 
+@pytest.mark.parametrize("bq,bw", [(64, 64), (32, 128), (128, 48)])
+def test_dense_tiles_plain_matches_pallas_interpret_at_tile_edges(bq, bw):
+    rng = np.random.default_rng(bq * 1000 + bw)
+    Q, W = bq + bq // 2 + 3, 4 * bw + bw // 3
+    args = _age_window(_kernel_inputs(rng, Q, W, 64, bq, bw, 32, Q // 3), bw, 1)
+    kw = dict(theta=0.6, lam=0.05, block_q=bq, block_w=bw, chunk_d=32)
+    want = jkernel.sssj_join_kernel_call(*map(jnp.asarray, args),
+                                         interpret=True, **kw)
+    got = tkernel.dense_tiles_plain(*[torch.from_numpy(a) for a in args], **kw)
+    _assert_dense_outputs(got, want, 0.6)
+    iters = np.asarray(want[1])
+    assert np.asarray(want[2]).sum() > 0
+    assert (iters[:, :1] == 0).all() and (iters[:, 1:] > 0).any()
+
+
 def test_dense_and_candidate_plain_versions_share_scores():
     """The two emissions of one score core: the candidate buffers hold
     exactly the dense matrix's nonzero entries, in row-major order."""

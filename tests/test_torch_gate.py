@@ -145,6 +145,27 @@ def test_gate_bound_matches_pallas_interpret():
     assert tgate.gate_ub.launches == 0   # a CPU tensor runs the plain version
 
 
+@pytest.mark.parametrize("bq,bw", [(64, 64), (32, 128), (128, 48)])
+def test_gate_bound_matches_pallas_interpret_at_tile_edges(bq, bw):
+    """The bound matrix at the query-tile edges the CUDA kernel now takes,
+    over strips of ``bw`` window rows."""
+    rng = np.random.default_rng(bq + bw)
+    qp = _unit(rng, 2 * bq, 128)
+    vecs, ts, uids = _window(rng, 5 * bw, 128, 4 * bw + 7)
+    s = jgate.summarize_strips(jnp.asarray(vecs), jnp.asarray(ts),
+                               jnp.asarray(uids), block_w=bw, chunk_d=32)
+    qa = np.abs(qp)
+    qcn = np.asarray(jgate._chunk_norms(jnp.asarray(qp), 32))
+    want = jgate._tile_ub_pallas(jnp.asarray(qa), jnp.asarray(qcn), s.vmax,
+                                 s.cnorm, block_q=bq, interpret=True)
+    got = tgate.gate_ub_plain(torch.from_numpy(qa), torch.from_numpy(np.array(qcn)),
+                              torch.from_numpy(np.array(s.vmax)),
+                              torch.from_numpy(np.array(s.cnorm)), block_q=bq)
+    assert got.shape == (2, 5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    assert tgate.KERNEL_BLOCK_Q == range(1, 129)
+
+
 @pytest.mark.parametrize("cap", [40, 64])
 def test_refresh_equals_rebuild_through_wrap(cap):
     """The summary refreshed on every push equals a full rebuild of the

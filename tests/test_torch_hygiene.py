@@ -27,6 +27,8 @@ from repro.obs import MetricsRegistry as JRegistry
 from repro_torch.core.similarity import time_horizon
 from repro_torch.data import synth as tsynth
 from repro_torch.engine import EngineConfig, StreamEngine
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as tflash
 from repro_torch.kernels.sssj_join import gate as tgate
 from repro_torch.kernels.sssj_join import kernel as tkernel
 from repro_torch.kernels.sssj_join import ops as tops
@@ -54,6 +56,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.obs, repro_torch.data\n"
         "import repro_torch.kernels.sssj_join, repro_torch.kernels._build\n"
+        "import repro_torch.kernels, repro_torch.kernels.flash_attention\n"
         "import repro_torch.engine\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
@@ -126,6 +129,23 @@ def test_wrappers_refuse_devices_without_a_kernel():
         tgate.gate_ub(q, lane, q, lane, block_q=128)
     assert tkernel.sssj_join_candidates_kernel_call.launches == 0
     assert tgate.gate_ub.launches == 0
+
+
+def test_flash_wrapper_refuses_devices_without_a_kernel():
+    """Beside the join wrappers: a meta tensor gets no plain fallback."""
+    m = dict(device="meta")
+    q = torch.empty((1, 4, 64, 64), **m)
+    kv = torch.empty((1, 2, 64, 64), **m)
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        tflash.flash_attention_kernel_call(q, kv, kv, sm_scale=0.125, causal=True,
+                                           block_q=64, block_k=64)
+    assert tflash.flash_attention_kernel_call.launches == 0
+
+
+def test_every_kernel_source_is_built():
+    """Each ``csrc/*.cu`` is one library of ``_build.SOURCES``."""
+    assert sorted(_build.SOURCES) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert "flash_attn" in _build.SOURCES
 
 
 def _run_smoke(cwd, script):

@@ -116,6 +116,51 @@ def test_tile_join_matches_pallas_interpret(
     assert np.asarray(want[2]).sum() > 0
 
 
+# the tile edges the consumers run on the card (64 x 64), and unequal
+# edges, one of them no compiled size (48 runs in the 64-wide tile)
+TILE_EDGES = [(64, 64), (32, 128), (128, 48)]
+
+
+@pytest.mark.parametrize("bq,bw", TILE_EDGES)
+@pytest.mark.parametrize("gated", [False, True])
+def test_tile_join_matches_pallas_interpret_at_tile_edges(bq, bw, gated):
+    rng = np.random.default_rng(bq * 1000 + bw + gated)
+    Q, W = bq + bq // 2 + 3, 3 * bw + bw // 3
+    args = _kernel_inputs(rng, Q, W, 64, bq, bw, 32, Q // 3)
+    args[3][:bw] -= 100.0             # the first window tile is time-dead
+    nq, nw = args[0].shape[0] // bq, args[1].shape[0] // bw
+    kw = dict(theta=0.6, lam=0.05, block_q=bq, block_w=bw, chunk_d=32,
+              tile_k=16)
+    gate = (rng.random((nq, nw)) < 0.7).astype(np.int32) if gated else None
+    want = jkernel.sssj_join_candidates_kernel_call(
+        *map(jnp.asarray, args), interpret=True,
+        gate=None if gate is None else jnp.asarray(gate), **kw,
+    )
+    got = tkernel.cand_tiles_plain(
+        *map(torch.from_numpy, args),
+        gate=None if gate is None else torch.from_numpy(gate), **kw,
+    )
+    _assert_cand_outputs(got, want)
+    assert np.asarray(want[2]).sum() > 0
+    iters = np.asarray(want[4])
+    assert (iters[:, 0] == 0).all() and (iters > 0).any()
+
+
+def test_kernel_tile_edge_range():
+    """The CUDA kernels take each tile edge from 1 to 128, run in the
+    smallest compiled edge that holds it; 0 and 129 on raise."""
+    assert tkernel.KERNEL_BLOCK == range(1, 129)
+    for e in tkernel.KERNEL_BLOCK:
+        t = tkernel.kernel_tile_edge(e)
+        assert t in tkernel.KERNEL_TILES and t >= e
+        assert all(s < e for s in tkernel.KERNEL_TILES if s < t)
+    assert [tkernel.kernel_tile_edge(e) for e in (1, 32, 33, 48, 64, 65, 128)] == [
+        32, 32, 64, 64, 64, 128, 128]
+    for e in (0, 129, 256):
+        with pytest.raises(ValueError, match="tile edges 1 to 128"):
+            tkernel.kernel_tile_edge(e)
+
+
 def test_tile_join_multi_tenant_lanes():
     """Stream ids and per-row (θ, λ), the lanes the kernel signature
     carries for the multi-tenant runtime."""
