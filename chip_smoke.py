@@ -11,9 +11,9 @@ the result line:
 2. every kernel against its plain PyTorch version, on the card, at the
    shapes its path gives it (integers exact, floats within ``FLOAT_TOL``
    outside a ``BAND`` around θ, which is reported), with CUDA-event times;
-   the join and gate kernels again at the tile edges (64, 64), (32, 128)
-   and (128, 48), and the engine at the consumers' 64 x 64 tiles against
-   its dense oracle;
+   the join and gate kernels again at the tile edges (64, 64), (32, 128),
+   (128, 48), (256, 256) and (192, 320), and the engine at the consumers'
+   64 x 64 and 256 x 256 tiles against its dense oracle;
 3. the main path: ``StreamEngine`` at ``capacity=262144, d=1024`` over a
    near-duplicate stream long enough to wrap the ring, with the kernels'
    launch counters read around the run, held against the same stream
@@ -24,7 +24,8 @@ the result line:
 5. flash attention through ``repro_torch.kernels.flash_attention`` at
    the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
    qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
-   padded head dim and a non-causal case, each output held against
+   padded head dim, head dims above 256 (run in column slices) and a
+   non-causal case, each output held against
    ``flash_attention_plain`` on the card, timed beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 6. the ``kernels`` line: launches, error, times and bound of each kernel,
@@ -38,6 +39,7 @@ when there is no GPU or when ``src/repro_torch`` is not beside it.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,14 +63,20 @@ CAPACITY, D, MICRO = 262144, 1024, 128
 REQUEST, RATE = 4096, 1000.0
 N_ITEMS = CAPACITY + 65536
 # the tile edges the kernels take besides 128 x 128: the consumers' 64 x 64
-# (SSSJService, DedupFilter), unequal edges, and an edge no compiled tile
-# has (48 runs in the 64-wide one)
-TILE_EDGES = ((64, 64), (32, 128), (128, 48))
-# the engine at the consumers' geometry: SSSJService(block=64)'s
-# micro-batch, tile_k and chunk_d, at a window the card holds many times
-# over; λ keeps the ring at about 2.5 horizons, as on the main path
-EDGE_CFG = dict(theta=THETA, lam=4e-3, capacity=65536, d=256, micro_batch=64,
-                block_q=64, block_w=64, chunk_d=128, tile_k=4096)
+# (SSSJService, DedupFilter), unequal edges, an edge no compiled tile has
+# (48 runs in the 64-wide one), and edges above 128, run in 128-wide
+# sub-tiles (MultiTenantSSSJService(micro_batch=256)'s 256 x 256; 192 x 320
+# ragged in both)
+TILE_EDGES = ((64, 64), (32, 128), (128, 48), (256, 256), (192, 320))
+# the engine at the consumers' geometries: SSSJService(block=64)'s
+# micro-batch, tile_k and chunk_d, and MultiTenantSSSJService(micro_batch=
+# 256)'s block = micro_batch = 256 with tile_k 256², at a window the card
+# holds many times over; λ keeps the ring at about 2.5 horizons, as on
+# the main path
+EDGE_CFGS = tuple(
+    dict(theta=THETA, lam=4e-3, capacity=65536, d=256, micro_batch=edge,
+         block_q=edge, block_w=edge, chunk_d=128, tile_k=edge * edge)
+    for edge in (64, 256))
 EDGE_ITEMS = 65536 + 16384
 
 
@@ -99,6 +107,21 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
 # --------------------------------------------------------------------- #
 # phase 1
 # --------------------------------------------------------------------- #
+def _ptxas(lines, entry: str) -> dict:
+    """Registers and spill bytes of the kernel whose mangled name holds
+    ``entry``, from ``-Xptxas -v``'s report of its build."""
+    out, seen = {}, False
+    for ln in lines:
+        if "entry function" in ln:
+            seen = entry in ln
+        elif seen and "spill" in ln:
+            out["spill_stores"], out["spill_loads"] = map(
+                int, re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
+        elif seen and "registers" in ln:
+            out["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
 def phase_device() -> dict:
     import torch
     from repro_torch.kernels import _build
@@ -116,10 +139,12 @@ def phase_device() -> dict:
                if "entry function" in ln or "registers" in ln or "spill" in ln]
         for name, rec in built.items()
     }
+    # the bf16 flash kernel at head dim 128 (the models' own), whole q . k^T
+    flash_bf16 = _ptxas(ptxas.get("flash_attn", []), "flash_bf16_kernelILi128ELb0E")
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.monotonic() - t0, "ptxas": ptxas})
-    return {"smi": smi}
+    return {"smi": smi, "ptxas_flash_bf16": flash_bf16}
 
 
 # --------------------------------------------------------------------- #
@@ -418,39 +443,45 @@ def _tile_edge_checks(dev, gen) -> dict:
     return out
 
 
-def phase_tile_edge_engine(dev) -> dict:
-    """The engine at the consumers' 64 x 64 tiles (``EDGE_CFG``) over a
-    stream that wraps the ring, held against ``join_impl="dense"`` on the
-    card as phase 3 holds the main path."""
+def phase_tile_edge_engine(dev) -> list:
+    """The engine at each of the consumers' tile geometries (``EDGE_CFGS``)
+    over a stream that wraps the ring, held against ``join_impl="dense"``
+    on the card as phase 3 holds the main path."""
     from repro_torch.kernels.sssj_join.gate import gate_ub
     from repro_torch.kernels.sssj_join.kernel import sssj_join_candidates_kernel_call
 
-    requests = _requests(EDGE_ITEMS, EDGE_CFG["d"])
-    sssj_join_candidates_kernel_call.launches = 0
-    gate_ub.launches = 0
-    kern = _run_engine(dev, requests, n_profiled=0, **EDGE_CFG)
-    launches = {"sssj_cand": sssj_join_candidates_kernel_call.launches,
-                "gate_ub": gate_ub.launches}
-    n_micro = sum(-(-len(v) // EDGE_CFG["micro_batch"]) for v, _ in requests)
-    if launches != {"sssj_cand": 2 * n_micro, "gate_ub": n_micro}:
-        raise AssertionError(f"64 x 64 engine launches {launches}, expected "
-                             f"2 x and 1 x {n_micro}")
-    dense = _run_engine(dev, requests, n_profiled=0, join_impl="dense", **EDGE_CFG)
-    band, score_err = _check_same_emission(kern, dense, "64 x 64 kernel route vs dense")
-    for key in ("pairs_dropped_budget", "pairs_dropped_tile", "window_overflow"):
-        if kern["stats"][key] != dense["stats"][key]:
-            raise AssertionError(f"64 x 64 {key}: kernel {kern['stats'][key]} vs "
-                                 f"dense {dense['stats'][key]}")
-    st = kern["stats"]
-    if st["n_items"] != EDGE_ITEMS or not len(kern["pairs"][0]) or st["window_overflow"]:
-        raise AssertionError(f"64 x 64 engine emitted nothing or overflowed: {st}")
-    rec = {"phase": "tile_edge_engine", "config": EDGE_CFG, "n_items": EDGE_ITEMS,
-           "pairs": len(kern["pairs"][0]), "dense_pairs": len(dense["pairs"][0]),
-           "band_pairs": len(band), "max_score_err": score_err,
-           "launches": launches, "items_per_s": kern["timed_items"] / kern["seconds"],
-           "dense_items_per_s": dense["timed_items"] / dense["seconds"], "stats": st}
-    emit(rec)
-    return rec
+    out = []
+    for cfg in EDGE_CFGS:
+        label = f"{cfg['block_q']} x {cfg['block_w']}"
+        requests = _requests(EDGE_ITEMS, cfg["d"])
+        sssj_join_candidates_kernel_call.launches = 0
+        gate_ub.launches = 0
+        kern = _run_engine(dev, requests, n_profiled=0, **cfg)
+        launches = {"sssj_cand": sssj_join_candidates_kernel_call.launches,
+                    "gate_ub": gate_ub.launches}
+        n_micro = sum(-(-len(v) // cfg["micro_batch"]) for v, _ in requests)
+        if launches != {"sssj_cand": 2 * n_micro, "gate_ub": n_micro}:
+            raise AssertionError(f"{label} engine launches {launches}, expected "
+                                 f"2 x and 1 x {n_micro}")
+        dense = _run_engine(dev, requests, n_profiled=0, join_impl="dense", **cfg)
+        band, score_err = _check_same_emission(kern, dense,
+                                               f"{label} kernel route vs dense")
+        for key in ("pairs_dropped_budget", "pairs_dropped_tile", "window_overflow"):
+            if kern["stats"][key] != dense["stats"][key]:
+                raise AssertionError(f"{label} {key}: kernel {kern['stats'][key]} vs "
+                                     f"dense {dense['stats'][key]}")
+        st = kern["stats"]
+        if st["n_items"] != EDGE_ITEMS or not len(kern["pairs"][0]) or st["window_overflow"]:
+            raise AssertionError(f"{label} engine emitted nothing or overflowed: {st}")
+        rec = {"phase": "tile_edge_engine", "config": cfg, "n_items": EDGE_ITEMS,
+               "pairs": len(kern["pairs"][0]), "dense_pairs": len(dense["pairs"][0]),
+               "band_pairs": len(band), "max_score_err": score_err,
+               "launches": launches,
+               "items_per_s": kern["timed_items"] / kern["seconds"],
+               "dense_items_per_s": dense["timed_items"] / dense["seconds"], "stats": st}
+        emit(rec)
+        out.append(rec)
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -661,8 +692,10 @@ def phase_dense_path(dev, requests, main_runs, smi) -> dict:
 # (label, B, H, Hkv, S, Dh, causal, dtype): the head geometry of qwen3-0.6b
 # (src/repro/configs/qwen3_0_6b.py: 16 heads, 8 kv heads, head_dim 128) at
 # a 4096-token prefill and of qwen2.5-3b (qwen2_5_3b.py: 16 heads, 2 kv
-# heads, 2048 / 16 = 128) at 2048; a ragged S, a head dim the kernel pads
-# (80 -> 128), and a non-causal aligned case
+# heads, 2048 / 16 = 128) at 2048; a ragged S, head dims the kernel pads
+# (80 -> 128, 200 -> 256) and every compiled bf16 one, head dims above 256
+# (320 -> 384 in three column slices of 128, 512 in four), and a
+# non-causal aligned case
 FLASH_CASES = (
     ("qwen3-0.6b f32", 1, 16, 8, 4096, 128, True, "float32"),
     ("qwen3-0.6b bf16", 1, 16, 8, 4096, 128, True, "bfloat16"),
@@ -671,7 +704,13 @@ FLASH_CASES = (
     ("ragged S 1000 f32", 1, 16, 8, 1000, 128, True, "float32"),
     ("ragged S 1000 bf16", 1, 16, 8, 1000, 128, True, "bfloat16"),
     ("head dim 80 f32", 1, 16, 8, 1024, 80, True, "float32"),
+    ("head dim 32 bf16", 1, 16, 8, 1024, 32, True, "bfloat16"),
+    ("head dim 64 bf16", 1, 16, 8, 1024, 64, True, "bfloat16"),
+    ("head dim 200 bf16", 1, 16, 8, 1024, 200, True, "bfloat16"),
+    ("head dim 320 f32", 1, 16, 8, 1024, 320, True, "float32"),
+    ("head dim 512 bf16", 1, 16, 8, 1024, 512, True, "bfloat16"),
     ("non-causal S 2048 f32", 1, 16, 8, 2048, 128, False, "float32"),
+    ("non-causal S 2048 bf16", 1, 16, 8, 2048, 128, False, "bfloat16"),
 )
 FLASH_TIMED = ("qwen3-0.6b f32", "qwen3-0.6b bf16", "qwen2.5-3b f32", "qwen2.5-3b bf16")
 FLASH_F32_TOL = 2e-5   # f32 sums in another order, at S 4096
@@ -714,6 +753,11 @@ def phase_flash(dev, smi) -> dict:
         flash_attention_kernel_call,
         flash_attention_plain,
     )
+    from repro_torch.kernels.flash_attention.kernel import (
+        KERNEL_HEAD_DIMS,
+        SLICE,
+        kernel_head_dim,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     inputs = {}
@@ -728,9 +772,12 @@ def phase_flash(dev, smi) -> dict:
             for case in FLASH_CASES}
     sync(dev)
     launches = flash_attention_kernel_call.launches
-    if launches != len(FLASH_CASES):
+    # one launch a case, one a column slice above the compiled head dims
+    expected = sum(1 if case[5] <= KERNEL_HEAD_DIMS[-1] else kernel_head_dim(case[5]) // SLICE
+                   for case in FLASH_CASES)
+    if launches != expected:
         raise AssertionError(f"flash attention launched {launches} times for "
-                             f"{len(FLASH_CASES)} cases")
+                             f"{len(FLASH_CASES)} cases, expected {expected}")
 
     cases = {}
     for label, B, H, Hkv, S, Dh, causal, dtype in FLASH_CASES:
@@ -803,7 +850,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        smi = phase_device()["smi"]
+        device = phase_device()
+        smi = device["smi"]
         dev = torch.device("cuda")
         kern = phase_kernels(dev)
         phase_tile_edge_engine(dev)
@@ -832,7 +880,7 @@ def main() -> int:
     rows.append({"name": "flash_attn", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
                  "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
-                 **flash})
+                 **flash, "ptxas_bf16": device["ptxas_flash_bf16"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

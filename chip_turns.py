@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Time the port's kernels in two checkouts in turns, on one GPU.
+
+    python3 chip_turns.py A_ROOT B_ROOT [--out FILE]
+
+Runs A, B, B, A, each in a process of its own (``--worker ROOT``) that
+imports ``ROOT/src/repro_torch`` (whose kernels build into ``ROOT/build``),
+makes the same seeded inputs with ``chip_smoke.py``'s generators, and
+times each wrapper with CUDA events (``chip_smoke.cuda_ms``):
+
+* the tile joins and the gate bound at the main path's shapes (one query
+  tile of 128 rows against a window of 262,144 x 1024, 128 x 128 tiles,
+  chunk 128): ``sssj_cand`` on the gated window and on the self join,
+  ``sssj_dense`` on the window, ``gate_ub``; then the same at 256 x 256
+  tiles (256 queries, ``tile_k`` 65,536), recorded as the error's text in
+  a checkout whose wrappers refuse that edge;
+* flash attention in f32 and bf16 at qwen3-0.6b's heads (B 1, H 16,
+  Hkv 8, S 4096, Dh 128) and qwen2.5-3b's (H 16, Hkv 2, S 2048), causal.
+
+Prints the card's name and power limit, one JSON line per run, and a
+summary line with each time's mean in A and in B and their ratio B / A;
+``--out`` also writes them to a file.  Two versions are compared only
+within one such call, in turns: times on one card move between calls.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+FLASH = (("qwen3-0.6b", 1, 16, 8, 4096, 128), ("qwen2.5-3b", 1, 16, 2, 2048, 128))
+
+
+def _join_times(dev, edge: int, reps: int) -> dict:
+    """The join and gate wrappers at ``edge x edge`` tiles over the main
+    path's window, each timed over ``reps`` launches."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.sssj_join import gate as gate_mod
+    from repro_torch.kernels.sssj_join.kernel import (
+        sssj_join_candidates_kernel_call as cand,
+        sssj_join_kernel_call as dense,
+    )
+    from repro_torch.kernels.sssj_join.ops import suffix_chunk_norms
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    chunk, n_q = 128, max(cs.MICRO, edge)
+    w, tw, uw = cs._window(gen, cs.CAPACITY, cs.D, 400.0, dev)
+    q, tq, uq = cs._queries(gen, w, tw, uw, n_q, 24 * n_q // cs.MICRO, dev)
+    sqq, sqw = suffix_chunk_norms(q, chunk), suffix_chunk_norms(w, chunk)
+    summary = gate_mod.summarize_strips(w, tw, uw, block_w=edge, chunk_d=chunk)
+    gate, _ = gate_mod.strip_gate(q, summary, block_q=edge, chunk_d=chunk,
+                                  tq_lo=tq.min(), tq_hi=tq.max(), th_min=cs.THETA,
+                                  lam_min=cs.LAM, device=dev)
+    col = lambda x: x[:, None]  # noqa: E731
+    args = (q, w, col(tq), col(tw), col(uq), col(uw), sqq, sqw)
+    kw = dict(theta=cs.THETA, lam=cs.LAM, block_q=edge, block_w=edge, chunk_d=chunk)
+    ckw = dict(kw, tile_k=2 * cs.MICRO if edge == 128 else edge * edge)
+    qa, qcn = q.abs(), gate_mod.chunk_norms(q, chunk)
+    calls = {
+        "cand_gated": lambda: cand(*args, **ckw, gate=gate.int()),
+        "cand_self": lambda: cand(q, q, col(tq), col(tq), col(uq), col(uq), sqq, sqq,
+                                  **ckw),
+        "dense": lambda: dense(*args, **kw),
+        "gate_ub": lambda: gate_mod.gate_ub(qa, qcn, summary.vmax, summary.cnorm,
+                                            block_q=edge),
+    }
+    return {f"{name}_{edge}": cs.cuda_ms(fn, reps) for name, fn in calls.items()}
+
+
+def _flash_times(dev, reps: int) -> dict:
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel_call
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    out = {}
+    for label, B, H, Hkv, S, Dh in FLASH:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
+                       for shape in ((B, H, S, Dh), (B, Hkv, S, Dh), (B, Hkv, S, Dh)))
+            kw = dict(sm_scale=Dh ** -0.5, causal=True, block_q=128, block_k=128)
+            out[f"flash {label} {dtype}"] = cs.cuda_ms(
+                lambda: flash_attention_kernel_call(q, k, v, **kw), reps)
+    return out
+
+
+def worker(root: str) -> dict:
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    sys.path.insert(1, str(HERE))
+    import torch
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    built = _build.build()
+    build_s = time.monotonic() - t0
+    dev = torch.device("cuda")
+    times = _join_times(dev, 128, 20)
+    try:
+        times.update(_join_times(dev, 256, 5))
+    except ValueError as exc:   # a checkout whose wrappers refuse the edge
+        times["edge_256"] = f"ValueError: {exc}"
+    times.update(_flash_times(dev, 20))
+    ptxas = {name: [ln.split("ptxas info    : ")[-1].strip()
+                    for ln in rec["log"].splitlines()
+                    if "entry function" in ln or "registers" in ln or "spill" in ln]
+             for name, rec in built.items()}
+    return {"root": root, "build_s": build_s, "times": times, "ptxas": ptxas}
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] == "--worker":
+        print(json.dumps(worker(argv[1])), flush=True)
+        return 0
+    if len(argv) not in (2, 4) or (len(argv) == 4 and argv[2] != "--out"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b = argv[0], argv[1]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    runs = []
+    for root in (a, b, b, a):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", root],
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            return proc.returncode
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({k: rec[k] for k in ("root", "build_s", "times")}), flush=True)
+        runs.append(rec)
+    summary = {}
+    for key in dict.fromkeys(k for r in runs for k in r["times"]):
+        pair = [[r["times"].get(key) for r in runs if r["root"] == x] for x in (a, b)]
+        if all(isinstance(t, float) for t in pair[0] + pair[1]):
+            ma, mb = (sum(t) / len(t) for t in pair)
+            summary[key] = {"a": pair[0], "b": pair[1], "b_over_a": mb / ma}
+        else:
+            summary[key] = {"a": pair[0], "b": pair[1]}
+    # each checkout's build report, from its first run (the second finds it built)
+    result = {"nvidia_smi": smi, "a": a, "b": b, "summary": summary,
+              "ptxas": {r["root"]: r["ptxas"] for r in runs[:2]}}
+    if len(argv) == 4:
+        Path(argv[3]).parent.mkdir(parents=True, exist_ok=True)
+        Path(argv[3]).write_text(json.dumps(result, indent=1))
+    print(json.dumps({k: result[k] for k in ("nvidia_smi", "a", "b", "summary")}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

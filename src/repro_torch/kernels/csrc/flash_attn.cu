@@ -2,51 +2,90 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::_kernel
 // (launched there by flash_attention_kernel_call, pallas_call at :118).
-// q (B, H, Sq, Dh), k and v (B, Hkv, Sk, Dh), f32 or bf16, row-major;
-// query head h reads kv head h / (H / Hkv).  The output has q's shape and
-// dtype.  For each query row, over kv tiles in ascending order:
+// q (B, H, Sq, Dqk), k (B, Hkv, Sk, Dqk), v (B, Hkv, Sk, DH), f32 or bf16,
+// row-major; query head h reads kv head h / (H / Hkv).  The output is
+// (B, H, Sq, DH) in the inputs' dtype.  For each query row, over kv tiles
+// in ascending order:
 //   s = (q * scale) . k^T            (masked to -1e30 where col > row when
 //                                     causal, and past Sk)
 //   m' = max(m, rowmax s), a = exp(m - m'), p = exp(s - m')
 //   l = l a + rowsum p, acc = acc a + p . v, m = m'
-// then out = acc / l, with l == 0 taken as 1.  All arithmetic is f32 for
-// both dtypes, as the TPU kernel's is: inputs are widened as they are
-// staged, q is scaled before the product, p stays f32 in p . v, and a
-// bf16 output is rounded once with __float2bfloat16_rn.  The running max
-// starts at -1e30, as the reference's does, so exp(m - m') is never NaN;
-// kv tile 0 holds column 0 <= row, so every row's max is finite from the
-// first tile on.
+// then out = acc / l, with l == 0 taken as 1.  The running max starts at
+// -1e30, as the reference's does, so exp(m - m') is never NaN; kv tile 0
+// holds column 0 <= row, so every row's max is finite from the first tile
+// on.  Query tiles run in reverse order, so the longest causal rows start
+// first; kv tiles wholly in the causal future of a query tile are not
+// visited.  The kv loop runs inside the block (the TPU's sequential
+// innermost grid axis) and carries m, l and acc in registers.
 //
-// Grid: one thread block per (query tile of 64 rows, head, batch), the
-// query tiles in reverse order so the longest causal rows start first.
-// The kv loop runs inside the block (the TPU's sequential innermost grid
-// axis) and carries m, l and acc in registers; kv tiles wholly in the
-// causal future of the query tile (c0 > r0 + 63) are not visited.
+// Head dims.  Each kernel is compiled for the width DH of v and the output
+// (32, 64, 128, 256), with q and k of the same width (Dqk == DH) staged
+// whole.  A larger head dim runs as column slices of the output, one launch
+// each (the wrapper slices v and out, 128 columns a launch): the SLABS
+// instances take q and k of any width Dqk that is a multiple of DH and
+// form q . k^T over Dqk one DH-wide slab at a time, so each launch
+// recomputes the same s, the same softmax statistics, and its own
+// columns of p . v.
 //
 // What bounds it on an H100: the multiply-adds of q.k^T and p.v, 2 * B * H
-// * Sq * Sk * Dh FLOP over the causal half.  In f32 that is the 67 TFLOP/s
-// of the CUDA cores (1.03 ms at B 1, H 16, S 4096, Dh 128); for bf16
-// inputs the least time is the same work at the 989 TFLOP/s of the bf16
-// tensor cores (0.07 ms), with the bytes of q, k, v and o (50 MB in bf16,
-// 0.015 ms) below it.  This first design keeps to CUDA-core f32 FMAs for both
-// dtypes (the arithmetic the TPU kernel specifies), so bf16 runs at the
-// f32 rate; tensor cores (mma.sync / wgmma on bf16 tiles) are later work.
-// What it does about the f32 bound: 256 threads each own 4 query rows x 4
-// kv columns of s and 4 rows x Dh/16 columns of acc in registers, so every
-// shared-memory float4 feeds 4 (s) or 4-16 (acc) FMAs; the q tile, the
-// k tile and the v tile live in dynamic shared memory with a 4-float row
-// pad (conflict-free float4 reads), and p^T reuses the k tile's space, so
-// Dh 128 takes 99 KB and two blocks fit on an SM.
+// * Sq * Sk * Dh FLOP over the causal half (68.7 GFLOP at B 1, H 16,
+// S 4096, Dh 128).  The bytes of q, k, v and o (50 MB in bf16, 0.015 ms at
+// 3.35 TB/s) are below that.
+//
+// f32 (flash_f32_kernel): the 67 TFLOP/s of the CUDA cores (1.03 ms at the
+// shape above); the products must stay IEEE f32, so no tensor core.
+// 256 threads each own 4 query rows x 4 kv columns of s and 4 rows x Dh/16
+// columns of acc in registers, so every shared-memory float4 feeds 4 (s)
+// or 4-16 (acc) FMAs; the q tile, the k tile and the v tile live in
+// dynamic shared memory with a 4-float row pad (conflict-free float4
+// reads), and p^T reuses the k tile's space, so Dh 128 takes 99 KB and two
+// blocks fit on an SM.  q is scaled as it is staged, as the TPU kernel
+// scales it before the product.
+//
+// bf16 (flash_bf16_kernel): the 989 TFLOP/s of the bf16 tensor cores
+// (0.069 ms at the shape above), which only Hopper's warpgroup products
+// (wgmma) reach.  One warpgroup (4 warps) owns a 64-row query tile, the
+// 64 rows of one wgmma, against kv tiles of 64:
+//   s = q . k^T    wgmma m64n64k16, q and k from shared memory (K-major);
+//   acc += p . v   wgmma m64nDHk16, p from registers (the accumulator
+//                  layout of s is the A-operand layout of p), v from
+//                  shared memory (MN-major, so no transpose is staged).
+// The tiles sit in shared memory in the layout the wgmma descriptors
+// name: 128-byte-wide atoms (64 for Dh 32) whose 16-byte chunks are
+// XOR-swizzled by row, which cp.async writes directly, so the tensor
+// cores read them without bank conflicts; the k and v tiles are
+// double-buffered, so the next tile's copy overlaps this tile's products
+// (rows past Sq or Sk are zero-filled by the copy).  At Dh 128 a block
+// takes 81 KB of shared memory and about 190 registers a thread, so two
+// blocks share an SM.  The arithmetic stays at f32 accuracy, as the TPU
+// kernel's f32 arithmetic is: the bf16 products q . k^T are exact and
+// summed in f32, and s is scaled after the product (by scale * log2 e,
+// so p = exp2(s' - m'), the same softmax); p stays f32 for l, and p . v
+// takes p as p_hi = bf16(p) plus p_lo = bf16(p - p_hi), two products
+// against the same v tile, 16 significant bits where a plain bf16 p keeps
+// 8.  So the tensor cores do 1.5 times the work of plain bf16 attention.
+// The output is rounded once to bf16.  A first design on mma.sync
+// (m16n8k16, ldmatrix fragments) with the same arithmetic took 1.4 times
+// as long at Dh 128 (PERF.md).  Not done yet: TMA copies and
+// producer/consumer warp specialization, which would overlap the softmax
+// of one tile with the products of the next.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
+
+constexpr float NEG = -1e30f;   // the reference's masked score and initial max
+
+// ------------------------------------------------------------------ f32
+namespace f32 {
 
 constexpr int BM = 64;          // query rows per block
 constexpr int BN = 64;          // kv rows per tile
 constexpr int NT = 256;         // threads: 16 x 16
-constexpr float NEG = -1e30f;   // the reference's masked score and initial max
 
 template <int DH>
 struct Geo {
@@ -58,33 +97,22 @@ struct Geo {
   static constexpr int SMEM = (BM * LD + KREGION + BN * LD) * 4;  // bytes
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + 2));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// rows [r0, r0 + ROWS) of a (len, DH) matrix into dst [ROWS][LD] as f32,
-// times scale when scaled; rows at or past len are zeros.  Every load is
-// issued before the first store, so all of a thread's are in flight.
-template <int ROWS, int DH, class T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int len,
-                                      bool scaled, float scale) {
+// rows [r0, r0 + ROWS) x columns [c0, c0 + DH) of a (len, ld) matrix into
+// dst [ROWS][LD], times scale when scaled; rows at or past len are zeros.
+// Every load is issued before the first store, so all of a thread's are
+// in flight.
+template <int ROWS, int DH>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0, int len,
+                                      int ld, int c0, bool scaled, float scale) {
   constexpr int C4 = DH / 4, PER = ROWS * C4 / NT;
   static_assert(PER * NT == ROWS * C4, "whole float4 runs per thread");
   float4 x[PER];
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
     const int e = threadIdx.x + u * NT, r = e / C4, c = (e % C4) * 4;
-    x[u] = r0 + r < len ? load4(src + (size_t)(r0 + r) * DH + c)
-                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    x[u] = r0 + r < len
+               ? __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * ld + c0 + c))
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
@@ -97,14 +125,41 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0, int len,
   }
 }
 
-template <int DH, class T>
-__global__ void __launch_bounds__(NT, DH <= 128 ? 2 : 1) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int H, int Hkv, int Sq, int Sk, int causal, float scale) {
+// s += the thread's 4 x 4 block of qs . ks^T over DH columns
+template <int DH>
+__device__ __forceinline__ void qk(const float* qs, const float* ks, int ty, int tx,
+                                   float (&s)[4][4]) {
+  constexpr int LD = Geo<DH>::LD;
+#pragma unroll 4
+  for (int kk = 0; kk < DH; kk += 4) {
+    float4 a[4], w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * LD + kk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + kk);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(a[i].x, w[j].x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, w[j].y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, w[j].z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, w[j].w, s[i][j]);
+      }
+  }
+}
+
+template <int DH, bool SLABS>
+__global__ void __launch_bounds__(NT, DH <= 128 ? 2 : 1) flash_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, int H, int Hkv, int Sq, int Sk, int dqk, int causal,
+    float scale) {
   using G = Geo<DH>;
   constexpr int CD = G::CD, VW = G::VW, LD = G::LD, LDP = G::LDP;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;               // [BM][LD]: q * scale
+  float* qs = smem;               // [BM][LD]: q * scale (a DH-wide slab of it)
   float* ks = qs + BM * LD;       // [BN][LD]: the k tile; then [BN][LDP]: p^T
   float* vs = ks + G::KREGION;    // [BN][LD]: the v tile
 
@@ -112,12 +167,13 @@ __global__ void __launch_bounds__(NT, DH <= 128 ? 2 : 1) flash_kernel(
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int r0 = iq * BM;
-  const T* qh = q + ((size_t)b * H + h) * Sq * DH;
-  const T* kh = k + ((size_t)b * Hkv + hk) * Sk * DH;
-  const T* vh = v + ((size_t)b * Hkv + hk) * Sk * DH;
-  T* oh = o + ((size_t)b * H + h) * Sq * DH;
+  const int ldqk = SLABS ? dqk : DH;
+  const float* qh = q + ((size_t)b * H + h) * Sq * ldqk;
+  const float* kh = k + ((size_t)b * Hkv + hk) * Sk * ldqk;
+  const float* vh = v + ((size_t)b * Hkv + hk) * Sk * DH;
+  float* oh = o + ((size_t)b * H + h) * Sq * DH;
 
-  stage<BM, DH>(qs, qh, r0, Sq, true, scale);
+  if constexpr (!SLABS) stage<BM, DH>(qs, qh, r0, Sq, DH, 0, true, scale);
 
   // thread (ty, tx) owns query rows ty*4 + i, kv columns tx + 16 j of s,
   // and output columns g*16*VW + tx*VW + e of acc
@@ -134,34 +190,27 @@ __global__ void __launch_bounds__(NT, DH <= 128 ? 2 : 1) flash_kernel(
   const int n_run = causal ? min(n_kv, (r0 + BM - 1) / BN + 1) : n_kv;
   for (int t = 0; t < n_run; ++t) {
     const int c0 = t * BN;
-    __syncthreads();  // the previous tile's p^T and v are read
-    stage<BN, DH>(ks, kh, c0, Sk, false, 1.0f);
-    stage<BN, DH>(vs, vh, c0, Sk, false, 1.0f);
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < DH; kk += 4) {
-      float4 a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * LD + kk);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + kk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, w[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, w[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, w[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, w[j].w, s[i][j]);
-        }
+    if constexpr (!SLABS) {
+      __syncthreads();  // the previous tile's p^T and v are read
+      stage<BN, DH>(ks, kh, c0, Sk, DH, 0, false, 1.0f);
+      stage<BN, DH>(vs, vh, c0, Sk, DH, 0, false, 1.0f);
+      __syncthreads();
+      qk<DH>(qs, ks, ty, tx, s);
+    } else {
+      // q . k^T one DH-wide slab at a time, in the same order of summation
+      for (int j0 = 0; j0 < dqk; j0 += DH) {
+        __syncthreads();  // the previous slab, or tile's p^T and v, are read
+        stage<BM, DH>(qs, qh, r0, Sq, dqk, j0, true, scale);
+        stage<BN, DH>(ks, kh, c0, Sk, dqk, j0, false, 1.0f);
+        if (j0 + DH >= dqk) stage<BN, DH>(vs, vh, c0, Sk, DH, 0, false, 1.0f);
+        __syncthreads();
+        qk<DH>(qs, ks, ty, tx, s);
+      }
     }
 
     // masks, then the online softmax: a row's 64 columns lie with the 16
@@ -234,55 +283,480 @@ __global__ void __launch_bounds__(NT, DH <= 128 ? 2 : 1) flash_kernel(
     const int row = r0 + ty * 4 + i;
     if (row >= Sq) continue;
     const float li = l[i] == 0.0f ? 1.0f : l[i];
-    T* dst = oh + (size_t)row * DH;
+    float* dst = oh + (size_t)row * DH;
 #pragma unroll
-    for (int c = 0; c < CD; ++c)
-      store1(dst + (c / VW) * 16 * VW + tx * VW + c % VW, acc[i][c] / li);
+    for (int c = 0; c < CD; ++c) dst[(c / VW) * 16 * VW + tx * VW + c % VW] = acc[i][c] / li;
   }
 }
 
-template <int DH, class T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int Sq, int Sk, int causal, float scale, cudaStream_t st) {
+}  // namespace f32
+
+// ----------------------------------------------------------------- bf16
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BM = 64;          // query rows per block: the 64 rows of one wgmma
+constexpr int BN = 64;          // kv rows per tile
+constexpr int NT = 128;         // one warpgroup; warp w owns rows 16 w .. 16 w + 15
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A [ROWS][DH] bf16 tile in shared memory, as wgmma reads it: DH / AC
+// atoms of AC columns side by side, each ROWS rows of SW bytes (SW =
+// 2 AC, 128 or 64), the 16-byte chunks of row r XOR-swizzled by bits
+// 7.. of r * SW (the hardware's 128- or 64-byte swizzle)
+template <int DH>
+struct Geo {
+  static constexpr int SW = DH * 2 < 128 ? DH * 2 : 128;   // bytes of an atom's row
+  static constexpr int AC = SW / 2;                          // columns of an atom
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;      // the descriptor's swizzle mode
+  static constexpr int QB = BM * DH * 2;                     // bytes of the q tile
+  static constexpr int KVB = BN * DH * 2;                    // bytes of one k or v tile
+  static constexpr int SMEM = QB + 4 * KVB + 1024;           // q, two k, two v; 1 KB to align
+  static_assert(DH % 32 == 0, "head dims of whole 64-byte rows");
+};
+
+template <int ROWS, int DH>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
   using G = Geo<DH>;
-  // above 48 KB only as dynamic shared memory, after this opt-in; a
-  // refused launch never runs, so the caller checks cudaGetLastError()
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<DH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  const int chunk = (c % G::AC) / 8, phase = (r * G::SW >> 7) & (G::SW / 16 - 1);
+  return (uint32_t)((c / G::AC) * ROWS * G::SW + r * G::SW + ((chunk ^ phase) << 4) + (c % 8) * 2);
+}
+
+// a shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, swizzle mode
+template <int DH>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (Geo<DH>::LAYOUT << 62);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// this thread's copies have landed and are visible to the tensor cores'
+// (async-proxy) reads; a barrier then makes every thread's so
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\nfence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from touching accumulators while a wgmma owns them
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) += a (64 x 16, smem, K-major) . b (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 32, f32) += a (64 x 16, registers) . b (16 x 32, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += a (64 x 16, registers) . b (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += a (64 x 16, registers) . b (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256, f32) += a (64 x 16, registers) . b (16 x 256, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x DH) += a (64 x 16, registers) . b (16 x DH, smem, MN-major)
+template <int DH>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (DH == 32) wgmma_rs_32(d, a, b);
+  else if constexpr (DH == 64) wgmma_rs_64(d, a, b);
+  else if constexpr (DH == 128) wgmma_rs_128(d, a, b);
+  else wgmma_rs_256(d, a, b);
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) as a bf16 pair hi and the pair lo of what hi leaves out
+// (x - hi is exact in f32): hi + lo holds x to 16 significant bits
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// rows [r0, r0 + ROWS) x columns [c0, c0 + DH) of a (len, ld) bf16 matrix
+// into the swizzled tile at dst by cp.async; rows at or past len are
+// zero-filled
+template <int ROWS, int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int r0, int len,
+                                          int ld, int c0) {
+  constexpr int CH = DH / 8, PER = ROWS * CH / NT;   // 16-byte chunks
+  static_assert(PER * NT == ROWS * CH, "whole chunks per thread");
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = threadIdx.x + u * NT, r = e / CH, c = (e % CH) * 8;
+    const bool valid = r0 + r < len;
+    cp16(dst + swz<ROWS, DH>(r, c), src + (size_t)(valid ? r0 + r : 0) * ld + c0 + c, valid);
+  }
+}
+
+// s (64 x 64, f32) += the q tile . the k tile^T over DH columns: both
+// K-major (columns contiguous), 16 columns a wgmma
+template <int DH>
+__device__ __forceinline__ void qk(uint32_t qs, uint32_t kt, float (&s)[32]) {
+  using G = Geo<DH>;
+#pragma unroll
+  for (int kk = 0; kk < DH; kk += 16) {
+    const uint32_t off = (kk % G::AC) * 2;
+    wgmma_ss_64(s, desc<DH>(qs + (kk / G::AC) * BM * G::SW + off, 16, 8 * G::SW),
+                desc<DH>(kt + (kk / G::AC) * BN * G::SW + off, 16, 8 * G::SW));
+  }
+}
+
+template <int DH, bool SLABS>
+__global__ void __launch_bounds__(NT, DH <= 128 ? 2 : 1) flash_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, int H, int Hkv, int Sq, int Sk, int dqk, int causal,
+    float scale_log2) {
+  using G = Geo<DH>;
+  constexpr int NO = DH / 8;   // output column groups of 8
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle is of address bits, so the tiles start 1024-byte aligned
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;   // [BM][DH]
+  const uint32_t ks = qs + G::QB;                               // two [BN][DH] stages
+  const uint32_t vs = ks + 2 * G::KVB;                          // two [BN][DH] stages
+
+  const int iq = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = iq * BM, wr0 = r0 + warp * 16;   // the block's and the warp's first row
+  const int ldqk = SLABS ? dqk : DH;
+  const bf16* qh = q + ((size_t)b * H + h) * Sq * ldqk;
+  const bf16* kh = k + ((size_t)b * Hkv + hk) * Sk * ldqk;
+  const bf16* vh = v + ((size_t)b * Hkv + hk) * Sk * DH;
+  bf16* oh = o + ((size_t)b * H + h) * Sq * DH;
+
+  // thread (g, t4) of warp w holds rows wr0 + g (i = 0) and wr0 + g + 8
+  // (i = 1); of s, element 4n + e is row i = e / 2, column c0 + 8n + 2 t4
+  // + e % 2; of acc likewise over the output columns
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};   // m in units of s * log2 e
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
+
+  const int n_kv = (Sk + BN - 1) / BN;
+  const int n_run = causal ? min(n_kv, (r0 + BM - 1) / BN + 1) : n_kv;
+  if constexpr (!SLABS) {
+    load_tile<BM, DH>(qs, qh, r0, Sq, DH, 0);
+    load_tile<BN, DH>(ks, kh, 0, Sk, DH, 0);
+    load_tile<BN, DH>(vs, vh, 0, Sk, DH, 0);
+    cp_commit();
+  }
+  for (int t = 0; t < n_run; ++t) {
+    const int c0 = t * BN;
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    uint32_t vt = vs;
+    if constexpr (!SLABS) {
+      cp_wait_all();
+      __syncthreads();   // tile t has landed for all; tile t - 1 is read by all
+      if (t + 1 < n_run) {
+        const uint32_t nx = ((t + 1) & 1) * G::KVB;
+        load_tile<BN, DH>(ks + nx, kh, c0 + BN, Sk, DH, 0);
+        load_tile<BN, DH>(vs + nx, vh, c0 + BN, Sk, DH, 0);
+        cp_commit();
+      }
+      vt = vs + (t & 1) * G::KVB;
+      reg_fence(s);
+      wg_fence();
+      qk<DH>(qs, ks + (t & 1) * G::KVB, s);
+      wg_commit_wait();
+      reg_fence(s);
+    } else {
+      // q . k^T one DH-wide slab at a time, the copies synchronous
+      for (int j0 = 0; j0 < dqk; j0 += DH) {
+        __syncthreads();   // the previous slab, or tile, is read by all
+        load_tile<BM, DH>(qs, qh, r0, Sq, dqk, j0);
+        load_tile<BN, DH>(ks, kh, c0, Sk, dqk, j0);
+        if (j0 + DH >= dqk) load_tile<BN, DH>(vs, vh, c0, Sk, DH, 0);
+        cp_commit();
+        cp_wait_all();
+        __syncthreads();
+        reg_fence(s);
+        wg_fence();
+        qk<DH>(qs, ks, s);
+        wg_commit_wait();
+        reg_fence(s);
+      }
+    }
+
+    // scale, mask, and the online softmax; a row's 64 columns lie with
+    // the 4 threads t4 of one quad
+    const bool masked = c0 + BN > Sk || (causal && c0 + BN - 1 > wr0);
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (masked) {
+        const int col = c0 + (i / 4) * 8 + 2 * t4 + (i & 1), row = wr0 + g + ((i >> 1) & 1) * 8;
+        if (col >= Sk || (causal && col > row)) x = NEG;
+      }
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_cur = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_cur);
+      m[r] = m_cur;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = exp2f(s[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += p;
+      s[i] = p;
+    }
+
+    // acc += p . v, p as p_hi + p_lo from registers: the accumulator
+    // layout of s over kv columns 16 kk .. 16 kk + 15 is the A layout of
+    // p; v is the B operand MN-major (its columns contiguous), 16 kv rows
+    // a wgmma, the atoms DH / AC of them BN * SW bytes apart
+    uint32_t ph[BN / 16][4], pl[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], ph[kk][j], pl[kk][j]);
+    reg_fence(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = desc<DH>(vt + kk * 16 * G::SW, BN * G::SW, 8 * G::SW);
+      wgmma_rs<DH>(acc, ph[kk], dv);
+      wgmma_rs<DH>(acc, pl[kk], dv);
+    }
+    wg_commit_wait();
+    reg_fence(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = wr0 + g + 8 * r;
+    if (row >= Sq) continue;
+    const float li = l[r] == 0.0f ? 1.0f : l[r];
+    bf16* dst = oh + (size_t)row * DH + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * r] / li, acc[4 * n + 2 * r + 1] / li);
+  }
+}
+
+}  // namespace tc
+
+// The opt-in to a kernel's dynamic shared memory (above 48 KB only after
+// it); a refused opt-in or launch never runs, so both are checked here
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int DH, bool SLABS>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
+               int Hkv, int Sq, int Sk, int dqk, int causal, float scale, cudaStream_t st) {
+  constexpr int SMEM = f32::Geo<DH>::SMEM;
+  const auto kernel = f32::flash_f32_kernel<DH, SLABS>;
+  const cudaError_t e = allow_smem(kernel, SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + BM - 1) / BM, H, B);
-  flash_kernel<DH, T><<<grid, NT, G::SMEM, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk, causal, scale);
+  const dim3 grid((Sq + f32::BM - 1) / f32::BM, H, B);
+  kernel<<<grid, f32::NT, SMEM, st>>>((const float*)q, (const float*)k, (const float*)v,
+                                      (float*)o, H, Hkv, Sq, Sk, dqk, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <int DH, bool SLABS>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+                int Hkv, int Sq, int Sk, int dqk, int causal, float scale, cudaStream_t st) {
+  using tc::bf16;
+  constexpr int SMEM = tc::Geo<DH>::SMEM;
+  const auto kernel = tc::flash_bf16_kernel<DH, SLABS>;
+  const cudaError_t e = allow_smem(kernel, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + tc::BM - 1) / tc::BM, H, B);
+  kernel<<<grid, tc::NT, SMEM, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                     (bf16*)o, H, Hkv, Sq, Sk, dqk, causal,
+                                     scale * tc::LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// the instance for (Dqk, Dv): Dqk == Dv in {32, 64, 128, 256}, or Dv 128
+// with Dqk a larger multiple of 128 (a column slice of a wide head)
+template <bool BF16>
 int launch_dh(const void* q, const void* k, const void* v, void* o, int B, int H,
-              int Hkv, int Sq, int Sk, int Dh, int causal, float scale,
+              int Hkv, int Sq, int Sk, int dqk, int dv, int causal, float scale,
               cudaStream_t st) {
-  switch (Dh) {
-    case 32: return launch<32, T>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, scale, st);
-    case 64: return launch<64, T>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, scale, st);
-    case 128: return launch<128, T>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, scale, st);
-    case 256: return launch<256, T>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, scale, st);
-    default: return (int)cudaErrorInvalidValue;
+  const auto run = [&](auto dh, auto slabs) {
+    constexpr int DH = decltype(dh)::value;
+    constexpr bool SLABS = decltype(slabs)::value;
+    if constexpr (BF16)
+      return launch_bf16<DH, SLABS>(q, k, v, o, B, H, Hkv, Sq, Sk, dqk, causal, scale, st);
+    else
+      return launch_f32<DH, SLABS>(q, k, v, o, B, H, Hkv, Sq, Sk, dqk, causal, scale, st);
+  };
+  using std::integral_constant;
+  using whole = integral_constant<bool, false>;
+  if (dqk == dv) {
+    switch (dv) {
+      case 32: return run(integral_constant<int, 32>{}, whole{});
+      case 64: return run(integral_constant<int, 64>{}, whole{});
+      case 128: return run(integral_constant<int, 128>{}, whole{});
+      case 256: return run(integral_constant<int, 256>{}, whole{});
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (dv == 128 && dqk > dv && dqk % dv == 0)
+    return run(integral_constant<int, 128>{}, integral_constant<bool, true>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B, H, Sq, Dh), k and v (B, Hkv, Sk, Dh), o (B, H, Sq, Dh), contiguous,
-// all f32 (bf16 == 0) or all bf16; Dh in {32, 64, 128, 256}; H a multiple
-// of Hkv.  Every element of o is written.  Returns cudaGetLastError()
-// after the launch.
+// q (B, H, Sq, Dqk), k (B, Hkv, Sk, Dqk), v (B, Hkv, Sk, Dv), o (B, H, Sq,
+// Dv), contiguous, all f32 (bf16 == 0) or all bf16; Dqk == Dv in {32, 64,
+// 128, 256}, or Dv 128 and Dqk a multiple of it; H a multiple of Hkv.
+// Every element of o is written.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int H, int Hkv, int Sq,
-                                 int Sk, int Dh, int causal, int bf16,
+                                 int Sk, int Dqk, int Dv, int causal, int bf16,
                                  float scale, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || Sq < 1 || Sk < 1 ||
       B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? launch_dh<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Sq, Sk, Dh, causal, scale, st)
-              : launch_dh<float>(q, k, v, o, B, H, Hkv, Sq, Sk, Dh, causal, scale, st);
+  return bf16 ? launch_dh<true>(q, k, v, o, B, H, Hkv, Sq, Sk, Dqk, Dv, causal, scale, st)
+              : launch_dh<false>(q, k, v, o, B, H, Hkv, Sq, Sk, Dqk, Dv, causal, scale, st);
 }

@@ -3,14 +3,18 @@
 // Replaces the TPU kernel src/repro/kernels/sssj_join/kernel.py::_kernel
 // (score core _tile_scores), launched there by sssj_join_kernel_call.
 // One thread block owns one (bq query rows x bw window rows) tile, any
-// edge from 1 to 128, run in the compiled tile <BQ, BW> (32, 64 or 128
-// each) that holds it, and
+// edges of 1 or more; with both edges up to 128 it runs in the compiled
+// tile <BQ, BW> (32, 64 or 128 each) that holds it (dense_kernel), and
 //   1. runs the score core of tile_scores.cuh (decay with the masks, the
 //      tile's time kill, the chunk loop with its l2 early exit), without
 //      stream lanes or gate, as the TPU kernel has none;
 //   2. writes the whole thresholded tile, acc * decay where it reaches
 //      theta and 0 elsewhere (a time-dead tile writes zeros), the chunks
 //      it ran and its count of entries > 0.
+// A tile with an edge above 128 (dense_big_kernel) runs the same steps
+// over its sub-tiles (big_tile_scores in tile_scores.cuh), with the
+// output itself as the workspace of its accumulators, thresholded in
+// place at the end.
 //
 // What bounds it on an H100: the (Qp, Wp) f32 output, which every call
 // writes in full (128 x 262,144 x 4 B = 134 MB at the engine's window,
@@ -86,10 +90,61 @@ __global__ void __launch_bounds__(NT) dense_kernel(
   }
 }
 
+// A tile with an edge above 128: the score core over sub-tiles, its
+// accumulators in out, then each sub-tile thresholded in place
+template <class T>
+__global__ void __launch_bounds__(NT) dense_big_kernel(
+    const TileIn in, float* __restrict__ out, int* __restrict__ iters,
+    int* __restrict__ counts, int Wp) {
+  constexpr int RM = T::RM, RN = T::RN;
+  __shared__ __align__(16) float slab[T::SLAB];
+  __shared__ Lanes<T::BQ, T::BW> L;
+  __shared__ int tile_count;
+
+  const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int nsq = (in.bq + T::BQ - 1) / T::BQ, nsw = (in.bw + T::BW - 1) / T::BW;
+  if (tid == 0) tile_count = 0;  // big_tile_scores syncs before any use
+
+  const int k = big_tile_scores<T>(in, L, slab, out, Wp);
+  float v[RM][RN], dec[RM][RN];
+  int count = 0;
+  for (int sq = 0; sq < nsq; ++sq)
+    for (int sw = 0; sw < nsw; ++sw) {
+      const SubTile s = sub_tile<T>(in, sq, sw);
+      const uint32_t rin = rows_inside<T>(ty, s.nr), cin = cols_inside<T>(tx, s.nc);
+      __syncthreads();  // L is free
+      stage_lanes<T>(in, L, s.q0, s.nr, s.w0, s.nc);
+      tile_decay<T>(in, L, rin, cin, dec);
+      ws_load<T>(out, Wp, s, k > 0 ? rin : 0u, cin, v);  // a dead tile's out is unset
+#pragma unroll
+      for (int a = 0; a < RM; ++a) {
+        const int i = T::row(ty, a);
+#pragma unroll
+        for (int b = 0; b < RN; ++b) {
+          float sc = 0.0f;
+          if (k > 0) {  // a spare column's decay is 0, so its score too
+            sc = __fmul_rn(v[a][b], dec[a][b]);
+            sc = sc >= L.th[i] ? sc : 0.0f;
+          }
+          v[a][b] = sc;
+          count += sc > 0.0f;
+        }
+      }
+      ws_store<T>(out, Wp, s, rin, cin, v);
+    }
+  if (count) atomicAdd(&tile_count, count);
+  __syncthreads();
+  if (tid == 0) {
+    iters[tile] = k;
+    counts[tile] = tile_count;
+  }
+}
+
 }  // namespace
 
 // Shapes: q (Qp, d), w (Wp, d) f32 row-major; tq/uq (Qp,), tw/uw (Wp,);
-// sqq (Qp, n_chunks), sqw (Wp, n_chunks); bq, bw in [1, 128].  Outputs:
+// sqq (Qp, n_chunks), sqw (Wp, n_chunks); bq, bw >= 1.  Outputs:
 // out (Qp, Wp) f32, iters/counts (Qp/bq, Wp/bw) i32, every element
 // written.  Returns cudaGetLastError() after the launch.
 extern "C" int sssj_dense_launch(
@@ -104,10 +159,18 @@ extern "C" int sssj_dense_launch(
       nullptr, nullptr, nullptr, nullptr, nullptr, d, chunk_d, d / chunk_d,
       theta, lam, bq, bw};
   const dim3 grid(Wp / bw, Qp / bq);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bq > MAX_EDGE || bw > MAX_EDGE)
+    return with_big_tile(bq, bw, [&](auto tile) {
+      using T = decltype(tile);
+      dense_big_kernel<T><<<grid, NT, 0, st>>>(in, (float*)out, (int*)iters,
+                                              (int*)counts, Wp);
+      return (int)cudaGetLastError();
+    });
   return with_tile(bq, bw, [&](auto tile) {
     using T = decltype(tile);
-    dense_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
-        in, (float*)out, (int*)iters, (int*)counts, Wp);
+    dense_kernel<T><<<grid, NT, 0, st>>>(in, (float*)out, (int*)iters,
+                                         (int*)counts, Wp);
     return (int)cudaGetLastError();
   });
 }

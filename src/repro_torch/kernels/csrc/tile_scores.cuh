@@ -27,6 +27,17 @@
 // __fadd_rn/__fmul_rn, and callers form the final score acc * decay with
 // __fmul_rn, so nvcc does not contract them into an fma: they round as
 // the plain version's separate ops do.
+//
+// A tile with an edge above MAX_EDGE (big_tile_scores) keeps the
+// reference's per-tile semantics (one kill, one early exit, one row-major
+// ranking over the whole tile) with the same block: it walks the tile's
+// sub-tiles of at most MAX_EDGE x MAX_EDGE (run in the compiled tile
+// <BQ, BW> with spare slots, an edge above 128 as 128) inside each chunk,
+// keeps the accumulators in an f32 workspace of the join's (Qp, Wp)
+// shape between chunks (each thread reads back only what it wrote), and
+// ORs every sub-tile's bound check into one block-wide flag per chunk.
+// The decay is recomputed per sub-tile and chunk (64 expf a thread against
+// 16K multiply-adds).  Speed at such edges is not what this path is for.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,7 +48,7 @@ namespace sssj {
 
 constexpr int NT = 256;         // threads: a 16 x 16 grid
 constexpr int SUB = 32;         // feature columns per shared-memory sub-slab
-constexpr int MAX_EDGE = 128;   // the largest tile edge a kernel takes
+constexpr int MAX_EDGE = 128;   // the largest compiled tile edge; larger tiles run in sub-tiles
 
 // The compiled tile <BQ, BW>: thread (ty, tx) owns RM rows and RN columns,
 // in runs of VM (VN) adjacent ones, the runs 16 runs apart.  FULL marks
@@ -129,6 +140,137 @@ __device__ __forceinline__ uint32_t cols_inside(int tx, int bw) {
   return m;
 }
 
+// The lanes of query rows [q0, q0 + nr) and window rows [w0, w0 + nc)
+// into L, then a barrier.  Spare rows and columns: no uid (so no pair),
+// and a theta no score reaches.
+template <class T>
+__device__ __forceinline__ void stage_lanes(const TileIn& in, Lanes<T::BQ, T::BW>& L,
+                                            size_t q0, int nr, size_t w0, int nc) {
+  const int tid = threadIdx.x;
+  const bool multi = in.sidq != nullptr;
+  for (int r = tid; r < T::BQ; r += NT) {
+    const bool in_r = T::FULL || r < nr;
+    L.tq[r] = in_r ? in.tq[q0 + r] : 0.0f;
+    L.uq[r] = in_r ? in.uq[q0 + r] : -1;
+    L.th[r] = !in_r ? INFINITY : multi ? in.thq[q0 + r] : in.theta;
+    L.lam[r] = in_r && multi ? in.lmq[q0 + r] : in.lam;
+    L.sq[r] = in_r && multi ? in.sidq[q0 + r] : 0;
+  }
+  for (int j = tid; j < T::BW; j += NT) {
+    const bool in_j = T::FULL || j < nc;
+    L.tw[j] = in_j ? in.tw[w0 + j] : 0.0f;
+    L.uw[j] = in_j ? in.uw[w0 + j] : -1;
+    L.sw[j] = in_j && multi ? in.sidw[w0 + j] : 0;
+  }
+  __syncthreads();
+}
+
+// The thread's decay entries into dec; returns whether one of them
+// (inside the runtime tile) reaches its row's theta
+template <class T>
+__device__ __forceinline__ bool tile_decay(const TileIn& in, const Lanes<T::BQ, T::BW>& L,
+                                           uint32_t rin, uint32_t cin,
+                                           float (&dec)[T::RM][T::RN]) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const bool multi = in.sidq != nullptr;
+  bool any_alive = false;
+#pragma unroll
+  for (int a = 0; a < T::RM; ++a) {
+    const int i = T::row(ty, a);
+#pragma unroll
+    for (int b = 0; b < T::RN; ++b) {
+      dec[a][b] = decay_at(L, i, T::col(tx, b), multi);
+      any_alive |= (((rin >> a) & (cin >> b) & 1u) != 0) & (dec[a][b] >= L.th[i]);
+    }
+  }
+  return any_alive;
+}
+
+// acc += q[q0 + i, col0 : col0 + chunk_d] . w[w0 + j, same]^T for the
+// thread's (i, j), over rows i < nr and j < nc (spare ones read zeros).
+// Uses slab (T::SLAB floats) as scratch; every thread must call it, and
+// the slab is free again on return.
+template <class T>
+__device__ __forceinline__ void chunk_dot(const TileIn& in, float* slab, size_t q0,
+                                          int nr, size_t w0, int nc, size_t col0,
+                                          float (&acc)[T::RM][T::RN]) {
+  constexpr int BQ = T::BQ, BW = T::BW, RM = T::RM, RN = T::RN;
+  constexpr int PQ = BQ * SUB / NT, PW = BW * SUB / NT;  // slab loads per thread
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int d = in.d, chunk_d = in.chunk_d;
+  float* qs = slab;
+  float* ws = slab + SUB * T::LDQ;
+  for (int c0 = 0; c0 < chunk_d; c0 += SUB) {
+    // thread tid stages column tid % SUB of rows tid / SUB + u * (NT / SUB);
+    // every load is issued before the first store, so all are in flight
+    const int c = tid % SUB, r0 = tid / SUB;
+    const bool col_in = c0 + c < chunk_d;
+    float lq[PQ], lw[PW];
+#pragma unroll
+    for (int u = 0; u < PQ; ++u) {
+      const int r = r0 + u * (NT / SUB);
+      lq[u] = (T::FULL || r < nr) && col_in ? __ldg(in.q + (q0 + r) * d + col0 + c0 + c) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < PW; ++u) {
+      const int r = r0 + u * (NT / SUB);
+      lw[u] = (T::FULL || r < nc) && col_in ? __ldg(in.w + (w0 + r) * d + col0 + c0 + c) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < PQ; ++u) qs[c * T::LDQ + r0 + u * (NT / SUB)] = lq[u];
+#pragma unroll
+    for (int u = 0; u < PW; ++u) ws[c * T::LDW + r0 + u * (NT / SUB)] = lw[u];
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < SUB; ++kk) {
+      float av[RM], bv[RN];
+#pragma unroll
+      for (int g = 0; g < RM / T::VM; ++g)
+        lds<T::VM>(qs + kk * T::LDQ + g * 16 * T::VM + ty * T::VM, av + g * T::VM);
+#pragma unroll
+      for (int g = 0; g < RN / T::VN; ++g)
+        lds<T::VN>(ws + kk * T::LDW + g * 16 * T::VN + tx * T::VN, bv + g * T::VN);
+#pragma unroll
+      for (int a = 0; a < RM; ++a)
+#pragma unroll
+        for (int b = 0; b < RN; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+    }
+    __syncthreads();
+  }
+}
+
+// l2 suffix bound after chunk k: the unseen remainder of each dot is at
+// most |q^{>k}| |w^{>k}|; returns whether one of the thread's entries
+// (inside the runtime tile) may still reach theta
+template <class T>
+__device__ __forceinline__ bool chunk_bound(const TileIn& in, const Lanes<T::BQ, T::BW>& L,
+                                            size_t q0, size_t w0, uint32_t rin, uint32_t cin,
+                                            int k, const float (&acc)[T::RM][T::RN],
+                                            const float (&dec)[T::RM][T::RN]) {
+  constexpr int RM = T::RM, RN = T::RN;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n_chunks = in.n_chunks;
+  float sa[RM], sb[RN];
+#pragma unroll
+  for (int a = 0; a < RM; ++a)
+    sa[a] = (rin >> a) & 1u ? __ldg(in.sqq + (q0 + T::row(ty, a)) * n_chunks + k) : 0.0f;
+#pragma unroll
+  for (int b = 0; b < RN; ++b)
+    sb[b] = (cin >> b) & 1u ? __ldg(in.sqw + (w0 + T::col(tx, b)) * n_chunks + k) : 0.0f;
+  bool alive_k = false;
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    const int i = T::row(ty, a);
+#pragma unroll
+    for (int b = 0; b < RN; ++b) {
+      const float ub = __fmul_rn(__fadd_rn(acc[a][b], __fmul_rn(sa[a], sb[b])),
+                                 dec[a][b]);
+      alive_k |= (((rin >> a) & (cin >> b) & 1u) != 0) & (ub >= L.th[i]);
+    }
+  }
+  return alive_k;
+}
+
 // The tile (blockIdx.y, blockIdx.x)'s dot products, into acc, and its
 // decay, into dec: returns the chunks run (0 for a dead tile, whose acc
 // stays 0).  Fills L; uses slab (T::SLAB floats) as scratch, free again
@@ -137,130 +279,127 @@ template <class T>
 __device__ __forceinline__ int tile_scores(const TileIn& in, Lanes<T::BQ, T::BW>& L,
                                            float* slab, float (&acc)[T::RM][T::RN],
                                            float (&dec)[T::RM][T::RN]) {
-  constexpr int BQ = T::BQ, BW = T::BW, RM = T::RM, RN = T::RN;
-  constexpr int PQ = BQ * SUB / NT, PW = BW * SUB / NT;  // slab loads per thread
   const int tj = blockIdx.x, ti = blockIdx.y, nw = gridDim.x;
   const size_t tile = (size_t)ti * nw + tj;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool multi = in.sidq != nullptr;
   const int bq = in.bq, bw = in.bw;
   const size_t q0 = (size_t)ti * bq, w0 = (size_t)tj * bw;
 
-  // spare rows and columns: no uid (so no pair), and a theta no score reaches
-  for (int r = tid; r < BQ; r += NT) {
-    const bool in_r = T::FULL || r < bq;
-    L.tq[r] = in_r ? in.tq[q0 + r] : 0.0f;
-    L.uq[r] = in_r ? in.uq[q0 + r] : -1;
-    L.th[r] = !in_r ? INFINITY : multi ? in.thq[q0 + r] : in.theta;
-    L.lam[r] = in_r && multi ? in.lmq[q0 + r] : in.lam;
-    L.sq[r] = in_r && multi ? in.sidq[q0 + r] : 0;
-  }
-  for (int j = tid; j < BW; j += NT) {
-    const bool in_j = T::FULL || j < bw;
-    L.tw[j] = in_j ? in.tw[w0 + j] : 0.0f;
-    L.uw[j] = in_j ? in.uw[w0 + j] : -1;
-    L.sw[j] = in_j && multi ? in.sidw[w0 + j] : 0;
-  }
-  __syncthreads();
-
+  stage_lanes<T>(in, L, q0, bq, w0, bw);
   const uint32_t rin = T::FULL ? ~0u : rows_inside<T>(ty, bq);
   const uint32_t cin = T::FULL ? ~0u : cols_inside<T>(tx, bw);
 
   // time filter at tile granularity: dot <= 1, so decay < theta everywhere
   // means the tile cannot emit
-  bool any_alive = false;
-#pragma unroll
-  for (int a = 0; a < RM; ++a) {
-    const int i = T::row(ty, a);
-#pragma unroll
-    for (int b = 0; b < RN; ++b) {
-      dec[a][b] = decay_at(L, i, T::col(tx, b), multi);
-      any_alive |= (((rin >> a) & (cin >> b) & 1u) != 0) & (dec[a][b] >= L.th[i]);
-    }
-  }
-  int live = __syncthreads_or(any_alive);
+  int live = __syncthreads_or(tile_decay<T>(in, L, rin, cin, dec));
   if (in.gate != nullptr && in.gate[tile] <= 0) live = 0;
 
 #pragma unroll
-  for (int a = 0; a < RM; ++a)
+  for (int a = 0; a < T::RM; ++a)
 #pragma unroll
-    for (int b = 0; b < RN; ++b) acc[a][b] = 0.0f;
+    for (int b = 0; b < T::RN; ++b) acc[a][b] = 0.0f;
 
-  const int d = in.d, chunk_d = in.chunk_d, n_chunks = in.n_chunks;
-  float* qs = slab;
-  float* ws = slab + SUB * T::LDQ;
   int k = 0;
-  while (live && k < n_chunks) {
-    const size_t col0 = (size_t)k * chunk_d;
-    for (int c0 = 0; c0 < chunk_d; c0 += SUB) {
-      // thread tid stages column tid % SUB of rows tid / SUB + u * (NT / SUB);
-      // every load is issued before the first store, so all are in flight
-      const int c = tid % SUB, r0 = tid / SUB;
-      const bool col_in = c0 + c < chunk_d;
-      float lq[PQ], lw[PW];
-#pragma unroll
-      for (int u = 0; u < PQ; ++u) {
-        const int r = r0 + u * (NT / SUB);
-        lq[u] = (T::FULL || r < bq) && col_in ? __ldg(in.q + (q0 + r) * d + col0 + c0 + c) : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < PW; ++u) {
-        const int r = r0 + u * (NT / SUB);
-        lw[u] = (T::FULL || r < bw) && col_in ? __ldg(in.w + (w0 + r) * d + col0 + c0 + c) : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < PQ; ++u) qs[c * T::LDQ + r0 + u * (NT / SUB)] = lq[u];
-#pragma unroll
-      for (int u = 0; u < PW; ++u) ws[c * T::LDW + r0 + u * (NT / SUB)] = lw[u];
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < SUB; ++kk) {
-        float av[RM], bv[RN];
-#pragma unroll
-        for (int g = 0; g < RM / T::VM; ++g)
-          lds<T::VM>(qs + kk * T::LDQ + g * 16 * T::VM + ty * T::VM, av + g * T::VM);
-#pragma unroll
-        for (int g = 0; g < RN / T::VN; ++g)
-          lds<T::VN>(ws + kk * T::LDW + g * 16 * T::VN + tx * T::VN, bv + g * T::VN);
-#pragma unroll
-        for (int a = 0; a < RM; ++a)
-#pragma unroll
-          for (int b = 0; b < RN; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-      }
-      __syncthreads();
-    }
-    // l2 suffix bound after chunk k: the unseen remainder of each dot is
-    // at most |q^{>k}| |w^{>k}|
-    float sa[RM], sb[RN];
-#pragma unroll
-    for (int a = 0; a < RM; ++a)
-      sa[a] = (rin >> a) & 1u ? __ldg(in.sqq + (q0 + T::row(ty, a)) * n_chunks + k) : 0.0f;
-#pragma unroll
-    for (int b = 0; b < RN; ++b)
-      sb[b] = (cin >> b) & 1u ? __ldg(in.sqw + (w0 + T::col(tx, b)) * n_chunks + k) : 0.0f;
-    bool alive_k = false;
-#pragma unroll
-    for (int a = 0; a < RM; ++a) {
-      const int i = T::row(ty, a);
-#pragma unroll
-      for (int b = 0; b < RN; ++b) {
-        const float ub = __fmul_rn(__fadd_rn(acc[a][b], __fmul_rn(sa[a], sb[b])),
-                                   dec[a][b]);
-        alive_k |= (((rin >> a) & (cin >> b) & 1u) != 0) & (ub >= L.th[i]);
-      }
-    }
+  while (live && k < in.n_chunks) {
+    chunk_dot<T>(in, slab, q0, bq, w0, bw, (size_t)k * in.chunk_d, acc);
+    const bool alive_k = chunk_bound<T>(in, L, q0, w0, rin, cin, k, acc, dec);
     ++k;
     live = __syncthreads_or(alive_k);
   }
   return k;
 }
 
-// The launchers' shape check: tile edges the kernels take, whole tiles,
+// Sub-tile (sq, sw) of a big tile: its first query and window rows, and
+// how many of its rows and columns lie inside the tile
+struct SubTile {
+  size_t q0, w0;
+  int nr, nc;
+};
+template <class T>
+__device__ __forceinline__ SubTile sub_tile(const TileIn& in, int sq, int sw) {
+  const size_t q0 = (size_t)blockIdx.y * in.bq, w0 = (size_t)blockIdx.x * in.bw;
+  return {q0 + (size_t)sq * T::BQ, w0 + (size_t)sw * T::BW,
+          min(T::BQ, in.bq - sq * T::BQ), min(T::BW, in.bw - sw * T::BW)};
+}
+
+// The thread's entries of sub-tile s in a (rows, Wp) matrix x: each
+// inside the tile read into v (spare ones 0), or v written to them
+template <class T>
+__device__ __forceinline__ void ws_load(const float* x, int Wp, const SubTile& s,
+                                        uint32_t rin, uint32_t cin,
+                                        float (&v)[T::RM][T::RN]) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int a = 0; a < T::RM; ++a)
+#pragma unroll
+    for (int b = 0; b < T::RN; ++b)
+      v[a][b] = ((rin >> a) & (cin >> b) & 1u)
+                    ? x[(s.q0 + T::row(ty, a)) * Wp + s.w0 + T::col(tx, b)] : 0.0f;
+}
+template <class T>
+__device__ __forceinline__ void ws_store(float* x, int Wp, const SubTile& s,
+                                         uint32_t rin, uint32_t cin,
+                                         const float (&v)[T::RM][T::RN]) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int a = 0; a < T::RM; ++a)
+#pragma unroll
+    for (int b = 0; b < T::RN; ++b)
+      if ((rin >> a) & (cin >> b) & 1u)
+        x[(s.q0 + T::row(ty, a)) * Wp + s.w0 + T::col(tx, b)] = v[a][b];
+}
+
+// tile_scores for a tile with an edge above MAX_EDGE, run in sub-tiles of
+// the compiled tile T (never FULL): the dot products end in ws (Qp, Wp),
+// at the tile's entries, and are left unset for a dead tile (returns 0).
+// L holds the lanes of the last sub-tile visited.
+template <class T>
+__device__ int big_tile_scores(const TileIn& in, Lanes<T::BQ, T::BW>& L, float* slab,
+                               float* ws, int Wp) {
+  static_assert(!T::FULL, "sub-tiles have spare slots");
+  const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int nsq = (in.bq + T::BQ - 1) / T::BQ, nsw = (in.bw + T::BW - 1) / T::BW;
+  float acc[T::RM][T::RN], dec[T::RM][T::RN];
+
+  bool any_alive = false;
+  for (int sq = 0; sq < nsq; ++sq)
+    for (int sw = 0; sw < nsw; ++sw) {
+      const SubTile s = sub_tile<T>(in, sq, sw);
+      __syncthreads();  // L is free
+      stage_lanes<T>(in, L, s.q0, s.nr, s.w0, s.nc);
+      any_alive |= tile_decay<T>(in, L, rows_inside<T>(ty, s.nr),
+                                 cols_inside<T>(tx, s.nc), dec);
+    }
+  int live = __syncthreads_or(any_alive);
+  if (in.gate != nullptr && in.gate[tile] <= 0) live = 0;
+
+  int k = 0;
+  while (live && k < in.n_chunks) {
+    bool alive_k = false;
+    for (int sq = 0; sq < nsq; ++sq)
+      for (int sw = 0; sw < nsw; ++sw) {
+        const SubTile s = sub_tile<T>(in, sq, sw);
+        const uint32_t rin = rows_inside<T>(ty, s.nr), cin = cols_inside<T>(tx, s.nc);
+        __syncthreads();  // L is free
+        stage_lanes<T>(in, L, s.q0, s.nr, s.w0, s.nc);
+        ws_load<T>(ws, Wp, s, k > 0 ? rin : 0u, cin, acc);
+        chunk_dot<T>(in, slab, s.q0, s.nr, s.w0, s.nc, (size_t)k * in.chunk_d, acc);
+        tile_decay<T>(in, L, rin, cin, dec);  // after the dot: fewer live registers
+        alive_k |= chunk_bound<T>(in, L, s.q0, s.w0, rin, cin, k, acc, dec);
+        ws_store<T>(ws, Wp, s, rin, cin, acc);
+      }
+    ++k;
+    live = __syncthreads_or(alive_k);
+  }
+  return k;
+}
+
+// The launchers' shape check: tile edges of at least 1, whole tiles,
 // whole chunks, a grid CUDA takes
 __host__ inline bool bad_shape(int Qp, int Wp, int d, int chunk_d, int bq, int bw) {
-  return bq < 1 || bq > MAX_EDGE || bw < 1 || bw > MAX_EDGE || Qp <= 0 ||
-         Wp <= 0 || Qp % bq || Wp % bw || chunk_d <= 0 || d % chunk_d ||
-         Qp / bq > 65535;
+  return bq < 1 || bw < 1 || Qp <= 0 || Wp <= 0 || Qp % bq || Wp % bw ||
+         chunk_d <= 0 || d % chunk_d || Qp / bq > 65535;
 }
 
 // f(Tile<BQ, BW, FULL>{}) for the compiled tile that holds (bq, bw): each
@@ -281,6 +420,20 @@ __host__ int with_tile(int bq, int bw, F&& f) {
   if (bq <= 32) return with_bw<32>(bq, bw, f);
   if (bq <= 64) return with_bw<64>(bq, bw, f);
   return with_bw<128>(bq, bw, f);
+}
+
+// f(Tile<BQ, BW, false>{}) for the sub-tiles of a tile with an edge above
+// MAX_EDGE: that edge runs as 128, the other as with_tile picks it
+template <class F>
+__host__ int with_big_tile(int bq, int bw, F&& f) {
+  if (bq > MAX_EDGE) {
+    if (bw <= 32) return f(Tile<128, 32, false>{});
+    if (bw <= 64) return f(Tile<128, 64, false>{});
+    return f(Tile<128, 128, false>{});
+  }
+  if (bq <= 32) return f(Tile<32, 128, false>{});
+  if (bq <= 64) return f(Tile<64, 128, false>{});
+  return f(Tile<128, 128, false>{});
 }
 
 }  // namespace sssj

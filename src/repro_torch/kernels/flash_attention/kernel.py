@@ -15,18 +15,22 @@ block to the next:
 
 :func:`flash_attention_kernel_call` runs it: on a CUDA tensor it launches
 ``csrc/flash_attn.cu`` (whose header says what bounds it on an H100 and
-how the design answers that) or raises; on a CPU tensor it runs
+how the design answers that: CUDA-core f32 for f32, bf16 tensor cores
+with f32 accumulation for bf16) or raises; on a CPU tensor it runs
 :func:`flash_attention_plain`, the same online softmax in PyTorch, which
 is also the kernel's oracle on the card.  The kernel is compiled for the
 head dims :data:`KERNEL_HEAD_DIMS`; the wrapper pads any other head dim up
-to 256 with zero columns (``q·k`` does not change, and the extra output
-columns are sliced off).
+to the next of them with zero columns (``q·k`` does not change, and the
+extra output columns are sliced off).  A head dim above 256 is padded to
+a multiple of :data:`SLICE` and runs in :func:`column_slices` of that many
+output columns, one launch each over the whole ``q·kᵀ``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import torch
 
@@ -35,6 +39,8 @@ from .._build import load
 
 __all__ = [
     "KERNEL_HEAD_DIMS",
+    "SLICE",
+    "column_slices",
     "flash_attention_kernel_call",
     "flash_attention_plain",
     "kernel_head_dim",
@@ -42,18 +48,26 @@ __all__ = [
 
 NEG_INF = -1e30  # the masked score and the running max's start, as the reference's
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the head dims the CUDA kernel is compiled for
+SLICE = 128   # output columns per launch above the largest of them
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def kernel_head_dim(dh: int) -> int:
-    """The compiled head dim that runs ``dh`` (its zero-padded width);
-    raises ``ValueError`` above the largest."""
+    """The zero-padded width that runs head dim ``dh``: the smallest of
+    :data:`KERNEL_HEAD_DIMS` that holds it, or above the largest the next
+    multiple of :data:`SLICE` (run in column slices of that width)."""
     for width in KERNEL_HEAD_DIMS:
         if dh <= width:
             return width
-    raise ValueError(
-        f"flash attention takes head dims up to {KERNEL_HEAD_DIMS[-1]}, got {dh}"
-    )
+    return -(-dh // SLICE) * SLICE
+
+
+def column_slices(fn: Callable, q, k, v, width: int) -> torch.Tensor:
+    """``fn(q, k, v)`` computed ``width`` output columns at a time: each
+    slice ``fn(q, k, v[..., c:c + width])`` sees the whole ``q·kᵀ`` (so the
+    same softmax) and gives those columns of the output."""
+    outs = [fn(q, k, v[..., c:c + width]) for c in range(0, v.shape[-1], width)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
 def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
@@ -61,16 +75,18 @@ def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
     """Plain PyTorch version of the kernel (same signature and output as
     :func:`flash_attention_kernel_call`): the TPU kernel's online softmax
     over kv blocks, in f32.  For each kv block only the q blocks it does
-    not skip are updated (rows from ``(ik·bk // bq)·bq`` on when causal)."""
-    B, H, Sq, Dh = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    not skip are updated (rows from ``(ik·bk // bq)·bq`` on when causal).
+    ``v`` may be narrower than ``q`` and ``k`` (a column slice): the output
+    has ``v``'s width."""
+    B, H, Sq, _ = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     group = H // Hkv
     dev = q.device
     f32 = dict(dtype=torch.float32, device=dev)
     qs = q.float() * sm_scale
     m = torch.full((B, H, Sq, 1), NEG_INF, **f32)
     l = torch.zeros((B, H, Sq, 1), **f32)
-    acc = torch.zeros((B, H, Sq, Dh), **f32)
+    acc = torch.zeros((B, H, Sq, Dv), **f32)
     rows = torch.arange(Sq, device=dev)[:, None]
     with ieee_f32(dev):
         for c0 in range(0, Sk, block_k):
@@ -96,7 +112,7 @@ def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
 def _launcher():
     fn = load("flash_attn").flash_attn_launch
     p = ctypes.c_void_p
-    fn.argtypes = [p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -118,7 +134,6 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
     if not (q.dtype == k.dtype == v.dtype) or not q.dtype.is_floating_point:
         raise ValueError(f"q, k, v must share one float dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    kernel_head_dim(Dh)
 
 
 def flash_attention_kernel_call(
@@ -133,17 +148,21 @@ def flash_attention_kernel_call(
 ) -> torch.Tensor:
     """Flash attention over inputs padded to block multiples; returns
     ``(B, H, Sq, Dh)`` in ``q.dtype``.  ``block_q``/``block_k`` set the
-    plain version's blocks; the kernel tiles by its own (64 × 64) and
-    masks its ragged edge, so they change only the order of summation."""
+    plain version's blocks; the kernel tiles by its own (64 × 64) and masks
+    its ragged edge, so they change only the order of summation."""
     _check(q, k, v, block_q, block_k)
     Dh = q.shape[-1]
     width = kernel_head_dim(Dh)
     if width != Dh:   # zero columns: q·k unchanged, extra outputs sliced off
         pad = (0, width - Dh)
         q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
+    per_launch = width if width in KERNEL_HEAD_DIMS else SLICE
     if q.device.type == "cpu":
-        out = flash_attention_plain(q, k, v, sm_scale=sm_scale, causal=causal,
-                                    block_q=block_q, block_k=block_k)
+        out = column_slices(
+            lambda q, k, vs: flash_attention_plain(
+                q, k, vs, sm_scale=sm_scale, causal=causal, block_q=block_q,
+                block_k=block_k),
+            q, k, v, per_launch)
         return out[..., :Dh]
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
@@ -153,18 +172,25 @@ def flash_attention_kernel_call(
         raise ValueError(f"q, k, v must all lie on {q.device}")
     if not all(x.is_contiguous() for x in (q, k, v)):
         raise ValueError("the flash-attention kernel takes contiguous q, k, v")
-    B, H, Sq, _ = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    return column_slices(
+        lambda q, k, vs: _launch(q, k, vs.contiguous(), sm_scale, causal),
+        q, k, v, per_launch)[..., :Dh]
+
+
+def _launch(q, k, v, sm_scale: float, causal: bool) -> torch.Tensor:
+    """One launch of the kernel: the output columns of ``v``'s width."""
+    B, H, Sq, Dqk = q.shape
+    Hkv, Sk, Dv = v.shape[1], v.shape[2], v.shape[3]
+    out = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, Hkv, Sq, Sk, width, int(causal), int(q.dtype == torch.bfloat16),
+        B, H, Hkv, Sq, Sk, Dqk, Dv, int(causal), int(q.dtype == torch.bfloat16),
         sm_scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error {err}")
     flash_attention_kernel_call.launches += 1
-    return out[..., :Dh]
+    return out
 
 
 flash_attention_kernel_call.launches = 0

@@ -26,7 +26,7 @@ import torch
 
 from ..._device import DeviceLike, ieee_f32, resolve_device
 from .._build import load
-from .kernel import KERNEL_BLOCK, kernel_tile_edge
+from .kernel import kernel_tile_edge
 
 __all__ = [
     "StripSummary",
@@ -39,7 +39,6 @@ __all__ = [
 ]
 
 EMPTY_TS = 3.0e30
-KERNEL_BLOCK_Q = KERNEL_BLOCK  # the query-tile edges the CUDA kernel takes
 
 
 class StripSummary(NamedTuple):

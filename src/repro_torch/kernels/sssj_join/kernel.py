@@ -20,11 +20,13 @@ Then the two emissions:
     whole thresholded ``(Qp, Wp)`` matrix with per-tile counts; on a CUDA
     tensor it launches ``csrc/sssj_dense.cu``.
 
-Both CUDA kernels take any tile edges ``block_q``, ``block_w`` from 1 to
-128 (:data:`KERNEL_BLOCK`), each run in the smallest compiled edge of
-:data:`KERNEL_TILES` that holds it, and share the score core
+Both CUDA kernels take any tile edges ``block_q``, ``block_w`` of 1 or
+more, as the reference does: an edge up to 128 runs in the smallest
+compiled edge of :data:`KERNEL_TILES` that holds it, a larger one in
+sub-tiles of 128 (:func:`kernel_tile_edge`), with the tile's kill, early
+exit and row-major ranking still per tile.  They share the score core
 (``csrc/tile_scores.cuh``, whose header says what bounds them on an H100
-and how the design answers that); a larger edge on a CUDA tensor raises.
+and how the design answers that).
 On a CPU tensor each wrapper runs its plain PyTorch version
 (:func:`cand_tiles_plain`, :func:`dense_tiles_plain`), the same
 arithmetic, which is also the kernel's oracle on the card.
@@ -52,20 +54,17 @@ __all__ = [
 ]
 
 NEG_UID = -1  # uid marking empty / padded slots
-KERNEL_BLOCK = range(1, 129)  # the tile edges the CUDA kernels take, each of block_q, block_w
 KERNEL_TILES = (32, 64, 128)  # the compiled edges; a tile runs in the smallest that holds it
 
 
 def kernel_tile_edge(edge: int) -> int:
     """The compiled edge of :data:`KERNEL_TILES` that runs a tile edge
-    (as the launchers in ``csrc/`` pick it); raises ``ValueError`` for an
-    edge outside :data:`KERNEL_BLOCK`."""
-    if edge not in KERNEL_BLOCK:
-        raise ValueError(
-            f"the CUDA kernels take tile edges {KERNEL_BLOCK.start} to "
-            f"{KERNEL_BLOCK.stop - 1}, got {edge}"
-        )
-    return next(t for t in KERNEL_TILES if edge <= t)
+    (as the launchers in ``csrc/`` pick it): the smallest that holds it,
+    or the largest for an edge above it, which then runs in sub-tiles of
+    that edge.  Raises ``ValueError`` for an edge below 1."""
+    if edge < 1:
+        raise ValueError(f"tile edges must be at least 1, got {edge}")
+    return next((t for t in KERNEL_TILES if edge <= t), KERNEL_TILES[-1])
 
 
 def _col(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -167,7 +166,7 @@ def dense_tiles_plain(
 
 
 _ARGTYPES = {   # pointers, ints, floats of each ``<name>_launch``, then the stream
-    "sssj_cand": (18, 7, 2),
+    "sssj_cand": (19, 7, 2),
     "sssj_dense": (11, 6, 2),
 }
 
@@ -280,6 +279,11 @@ def sssj_join_candidates_kernel_call(
         _cuda_lane(lam_q, Qp, torch.float32, dev),
     ]
     g = None if gate is None else _cuda_lane(gate, nq * nw, torch.int32, dev)
+    # a tile with an edge above the largest compiled one keeps its
+    # accumulators here between chunks
+    ws = None
+    if max(block_q, block_w) > KERNEL_TILES[-1]:
+        ws = torch.empty((Qp, Wp), dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     cand_idx = torch.empty((nq, nw, tile_k), **i32)
     cand_score = torch.empty((nq, nw, tile_k), dtype=torch.float32, device=dev)
@@ -288,7 +292,7 @@ def sssj_join_candidates_kernel_call(
     iters = torch.empty((nq, nw), **i32)
     err = _launcher("sssj_cand")(
         q.data_ptr(), w.data_ptr(), *map(_ptr, lanes), *map(_ptr, norms),
-        *map(_ptr, multi), _ptr(g), cand_idx.data_ptr(),
+        *map(_ptr, multi), _ptr(g), _ptr(ws), cand_idx.data_ptr(),
         cand_score.data_ptr(), emitted.data_ptr(), row_hits.data_ptr(),
         iters.data_ptr(), Qp, Wp, d, chunk_d, tile_k, block_q, block_w,
         theta, lam,

@@ -86,7 +86,8 @@ def test_dense_tiles_plain_matches_pallas_interpret(
     assert tkernel.sssj_join_kernel_call.launches == 0
 
 
-@pytest.mark.parametrize("bq,bw", [(64, 64), (32, 128), (128, 48)])
+@pytest.mark.parametrize("bq,bw", [(64, 64), (32, 128), (128, 48), (256, 256),
+                                   (192, 320)])
 def test_dense_tiles_plain_matches_pallas_interpret_at_tile_edges(bq, bw):
     rng = np.random.default_rng(bq * 1000 + bw)
     Q, W = bq + bq // 2 + 3, 4 * bw + bw // 3

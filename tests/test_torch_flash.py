@@ -111,9 +111,43 @@ def test_flash_attention_head_dim_zero_pad(monkeypatch, dtype):
 
 
 @pytest.mark.parametrize("dh,width", [(1, 32), (32, 32), (33, 64), (80, 128),
-                                      (128, 128), (200, 256), (256, 256)])
+                                      (128, 128), (200, 256), (256, 256),
+                                      (257, 384), (320, 384), (512, 512)])
 def test_kernel_head_dim(dh, width):
     assert tkernel.kernel_head_dim(dh) == width
+
+
+@pytest.mark.parametrize("Dh", [320, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_wide_head_dims_match_reference(monkeypatch, Dh, dtype):
+    """Head dims above 256 run padded to a multiple of 128, in column
+    slices of 128 output columns, each over the whole q·kᵀ."""
+    widths = []
+    real = tkernel.flash_attention_plain
+    monkeypatch.setattr(tkernel, "flash_attention_plain",
+                        lambda q, k, v, **kw: widths.append((q.shape[-1], v.shape[-1]))
+                        or real(q, k, v, **kw))
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(Dh, 1, 4, 2, 96, 96, Dh), dtype)
+    want = j_flash_attention(jq, jk, jv, block_q=32, block_k=32)
+    got = flash_attention(tq, tk, tv, block_q=32, block_k=32, device=CPU)
+    assert got.shape == (1, 4, 96, Dh)
+    _close(got, want, dtype)
+    _close(got, j_attention_ref(jq, jk, jv, sm_scale=Dh ** -0.5, causal=True), dtype)
+    width = tkernel.kernel_head_dim(Dh)
+    assert widths == [(width, tkernel.SLICE)] * (width // tkernel.SLICE)
+
+
+@pytest.mark.parametrize("width", [32, 128])
+def test_column_slices_equal_unsliced_plain(width):
+    """The slicing helper with the plain version gives the unsliced plain
+    output: every slice sees the same scores and softmax statistics."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(21, 1, 4, 2, 64, 64, 256))
+    kw = dict(sm_scale=256 ** -0.5, causal=True, block_q=32, block_k=32)
+    whole = tkernel.flash_attention_plain(q, k, v, **kw)
+    sliced = tkernel.column_slices(
+        lambda q, k, vs: tkernel.flash_attention_plain(q, k, vs, **kw), q, k, v, width)
+    assert sliced.shape == whole.shape
+    assert torch.equal(sliced, whole)
 
 
 def test_validation_errors():
@@ -124,9 +158,12 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="Sq == Sk"):
         flash_attention(q, k, v, device=CPU)
     flash_attention(q, k, v, causal=False, device=CPU)    # cross attention is fine
+    # a head dim above the kernel's largest compiled one runs, as the
+    # reference's kernel runs it: padded to 384, in three column slices
     q, k, v = _qkv(3, 1, 2, 2, 16, 16, 257)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        flash_attention(q, k, v, device=CPU)
+    got = flash_attention(q, k, v, device=CPU)
+    assert got.shape == (1, 2, 16, 257)
+    _close(got, j_flash_attention(*map(jnp.asarray, (q, k, v))), "float32")
     # the reference's naive route takes any head dim
     out = flash_attention(q, k, v, use_ref=True, device=CPU)
     assert out.shape == (1, 2, 16, 257)

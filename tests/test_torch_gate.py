@@ -145,7 +145,8 @@ def test_gate_bound_matches_pallas_interpret():
     assert tgate.gate_ub.launches == 0   # a CPU tensor runs the plain version
 
 
-@pytest.mark.parametrize("bq,bw", [(64, 64), (32, 128), (128, 48)])
+@pytest.mark.parametrize("bq,bw", [(64, 64), (32, 128), (128, 48), (256, 256),
+                                   (192, 320)])
 def test_gate_bound_matches_pallas_interpret_at_tile_edges(bq, bw):
     """The bound matrix at the query-tile edges the CUDA kernel now takes,
     over strips of ``bw`` window rows."""
@@ -163,7 +164,9 @@ def test_gate_bound_matches_pallas_interpret_at_tile_edges(bq, bw):
                               torch.from_numpy(np.array(s.cnorm)), block_q=bq)
     assert got.shape == (2, 5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-    assert tgate.KERNEL_BLOCK_Q == range(1, 129)
+    # the kernel runs the tile in the compiled edge that holds it, or in
+    # bands of 128 rows above that
+    assert tgate.kernel_tile_edge(bq) == min(t for t in (32, 64, 128) if t >= min(bq, 128))
 
 
 @pytest.mark.parametrize("cap", [40, 64])

@@ -1,8 +1,8 @@
 """Boundaries of the PyTorch port.
 
-* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither
-  ``jax`` nor anything of ``repro``: checked in a fresh interpreter and by
-  a static scan.
+* The port (``src/repro_torch``), ``chip_smoke.py`` and ``chip_turns.py``
+  import neither ``jax`` nor anything of ``repro``: checked in a fresh
+  interpreter and by a static scan.
 * Entry points default to CUDA and raise without a GPU instead of
   carrying on on the CPU; a kernel wrapper refuses a device it has no
   kernel for; ``chip_smoke.py`` fails without a GPU and alone.
@@ -37,6 +37,7 @@ from repro_torch.obs import MetricsRegistry
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORT = os.path.join(_ROOT, "src", "repro_torch")
 _SMOKE = os.path.join(_ROOT, "chip_smoke.py")
+_TURNS = os.path.join(_ROOT, "chip_turns.py")
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)|"
     r"from\s+repro\b(?!_torch))",
@@ -45,7 +46,7 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
-    out = [_SMOKE]
+    out = [_SMOKE, _TURNS]
     for dirpath, _, files in os.walk(_PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -81,7 +82,7 @@ def test_no_jax_or_repro_import_statement(path):
 def test_port_sources_found():
     names = {os.path.basename(p) for p in _port_sources()}
     assert {"engine.py", "window.py", "kernel.py", "gate.py", "ops.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "chip_turns.py"} <= names
 
 
 def _no_gpu(monkeypatch):
@@ -169,6 +170,14 @@ def test_chip_smoke_fails_alone(tmp_path):
     res = _run_smoke(str(tmp_path), str(alone))
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_chip_turns_needs_two_checkouts():
+    """Without its two checkout roots it prints its usage and times nothing."""
+    res = subprocess.run([sys.executable, _TURNS], capture_output=True, text=True,
+                         timeout=60)
+    assert res.returncode == 2
+    assert "A_ROOT B_ROOT" in res.stderr and res.stdout == ""
 
 
 @pytest.mark.parametrize("theta,lam", [(0.9, 1e-3), (0.5, 0.2), (1.0, 0.5), (0.8, 0.0)])

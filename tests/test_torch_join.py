@@ -116,9 +116,11 @@ def test_tile_join_matches_pallas_interpret(
     assert np.asarray(want[2]).sum() > 0
 
 
-# the tile edges the consumers run on the card (64 x 64), and unequal
-# edges, one of them no compiled size (48 runs in the 64-wide tile)
-TILE_EDGES = [(64, 64), (32, 128), (128, 48)]
+# the tile edges the consumers run on the card (64 x 64), unequal edges,
+# one of them no compiled size (48 runs in the 64-wide tile), and edges
+# above 128, which run in 128-wide sub-tiles (MultiTenantSSSJService's
+# block = micro_batch = 256; 192 x 320 ragged in both)
+TILE_EDGES = [(64, 64), (32, 128), (128, 48), (256, 256), (192, 320)]
 
 
 @pytest.mark.parametrize("bq,bw", TILE_EDGES)
@@ -147,17 +149,19 @@ def test_tile_join_matches_pallas_interpret_at_tile_edges(bq, bw, gated):
 
 
 def test_kernel_tile_edge_range():
-    """The CUDA kernels take each tile edge from 1 to 128, run in the
-    smallest compiled edge that holds it; 0 and 129 on raise."""
-    assert tkernel.KERNEL_BLOCK == range(1, 129)
-    for e in tkernel.KERNEL_BLOCK:
+    """The CUDA kernels take any tile edge of 1 or more: up to 128 in the
+    smallest compiled edge that holds it, above that in sub-tiles of the
+    largest (128); 0 raises."""
+    for e in range(1, 129):
         t = tkernel.kernel_tile_edge(e)
         assert t in tkernel.KERNEL_TILES and t >= e
         assert all(s < e for s in tkernel.KERNEL_TILES if s < t)
     assert [tkernel.kernel_tile_edge(e) for e in (1, 32, 33, 48, 64, 65, 128)] == [
         32, 32, 64, 64, 64, 128, 128]
-    for e in (0, 129, 256):
-        with pytest.raises(ValueError, match="tile edges 1 to 128"):
+    assert [tkernel.kernel_tile_edge(e) for e in (129, 192, 256, 320, 4096)] == [
+        128] * 5
+    for e in (0, -1):
+        with pytest.raises(ValueError, match="at least 1"):
             tkernel.kernel_tile_edge(e)
 
 
