@@ -11,6 +11,7 @@ the result line:
 2. every kernel against its plain PyTorch version, on the card, at the
    shapes its path gives it (integers exact, floats within ``FLOAT_TOL``
    outside a ``BAND`` around θ, which is reported), with CUDA-event times;
+   the tile joins also with every tile dead and with every tile live;
    the join and gate kernels again at the tile edges (64, 64), (32, 128),
    (128, 48), (256, 256) and (192, 320), and the engine at the consumers'
    64 x 64 and 256 x 256 tiles against its dense oracle;
@@ -51,10 +52,12 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 FLOAT_TOL = 1e-5       # scores and bounds: f32 sums in another order
 BAND = 1e-5            # pairs this close to θ may differ between runs
-# H100 SXM peaks at its 700 W limit: HBM bytes/s, and f32 FLOP/s outside
-# the tensor cores (both kernels keep IEEE f32 dot products)
+# H100 SXM peaks at its 700 W limit: HBM bytes/s, f32 FLOP/s outside the
+# tensor cores, and dense TF32 on them (the tile joins form their f32 dot
+# products as three TF32 products, 3xTF32)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12   # dense bf16 tensor cores: the least time of bf16 work
 
 # the main path's configuration: the near-duplicate service's traffic
@@ -139,12 +142,16 @@ def phase_device() -> dict:
                if "entry function" in ln or "registers" in ln or "spill" in ln]
         for name, rec in built.items()
     }
-    # the bf16 flash kernel at head dim 128 (the models' own), whole q . k^T
+    # the bf16 flash kernel at head dim 128 (the models' own), whole q . k^T,
+    # and the tile joins' FULL 128 x 128 instances (the main path's)
     flash_bf16 = _ptxas(ptxas.get("flash_attn", []), "flash_bf16_kernelILi128ELb0E")
+    full128 = "_kernelIN4sssj4TileILi128ELi128ELb1EEE"
+    joins = {name: _ptxas(ptxas.get(name, []), entry + full128)
+             for name, entry in (("sssj_cand", "cand"), ("sssj_dense", "dense"))}
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.monotonic() - t0, "ptxas": ptxas})
-    return {"smi": smi, "ptxas_flash_bf16": flash_bf16}
+    return {"smi": smi, "ptxas_flash_bf16": flash_bf16, "ptxas_joins": joins}
 
 
 # --------------------------------------------------------------------- #
@@ -208,7 +215,8 @@ def _compare_dense(name, kernel_out, plain_out, theta) -> dict:
         raise AssertionError(f"{name}: score max error {err} > {FLOAT_TOL}")
     return {"max_abs_err": err, "band_entries": int(band.sum()),
             "band_differ": int((band & (ks != ps)).sum()),
-            "pairs": int(kc.sum()), "chunks_run": int(ki.sum()), "tiles": ki.numel()}
+            "pairs": int(kc.sum()), "chunks_run": int(ki.sum()), "tiles": ki.numel(),
+            "live_tiles": int((ki > 0).sum())}
 
 
 def sync(dev) -> None:
@@ -250,7 +258,8 @@ def phase_kernels(dev) -> dict:
         sync(dev)
         err = _compare_cand(label, k_out, p_out)
         rec = {"max_abs_err": err, "pairs": int(k_out[2].sum()),
-               "chunks_run": int(k_out[4].sum()), "tiles": k_out[4].numel()}
+               "chunks_run": int(k_out[4].sum()), "tiles": k_out[4].numel(),
+               "live_tiles": int((k_out[4] > 0).sum())}
         if reps:
             rec["ms"] = cuda_ms(lambda: cand(*args, **ckw), reps)
             rec["plain_ms"] = cuda_ms(lambda: cand_tiles_plain(*args, **ckw), 3, 1)
@@ -301,6 +310,19 @@ def phase_kernels(dev) -> dict:
     run_case("multi_tenant", main_args,
              dict(base, sq=col(sid_q), sw=col(sid_w), theta_q=col(th_q),
                   lam_q=col(lam_q)), reps=0)
+    # the two ends of the tile population at the main path's shapes: every
+    # tile gated off (the grid and the dead tiles alone), and every tile
+    # live (gate all ones over the window squeezed into 2.6 time units, so
+    # each tile runs until its early exit)
+    nw_tiles = CAPACITY // blk
+    dead = run_case("window_all_dead", main_args,
+                    dict(base, gate=torch.zeros_like(gate)), reps=20)
+    live_args = (q, w, col(tq), col(400.0 - (400.0 - tw) / 100.0), col(uq), col(uw),
+                 sqq, sqw)
+    live = run_case("window_all_live", live_args,
+                    dict(base, gate=torch.ones_like(gate)), reps=20)
+    if dead["live_tiles"] or live["live_tiles"] != nw_tiles or not live["pairs"]:
+        raise AssertionError(f"all-dead / all-live cases: {dead}, {live}")
 
     # the gate bound at the main path's shapes
     vmax, cnorm = summary.vmax, summary.cnorm
@@ -339,25 +361,34 @@ def phase_kernels(dev) -> dict:
     run_dense("self", (q, q, col(tq), col(tq), col(uq), col(uq), sqq, sqq),
               dkw, reps=20)
     run_dense("ragged_d_two_q_tiles", ragged_args, dict(dkw, theta=0.5), reps=0)
+    # the dense join has no gate: its all-dead window lies 1,000 time units
+    # back (every decay below θ), its all-live one is the squeezed window
+    d_dead = run_dense("window_all_dead", (q, w, col(tq), col(tw - 1000.0), col(uq),
+                                           col(uw), sqq, sqw), dkw, reps=20)
+    d_live = run_dense("window_all_live", live_args, dkw, reps=20)
+    if d_dead["live_tiles"] or d_live["live_tiles"] != nw_tiles:
+        raise AssertionError(f"dense all-dead / all-live cases: {d_dead}, {d_live}")
     edges = _tile_edge_checks(dev, gen)
 
     # bounds from this run's inputs: each input read once, each output
-    # written once; the tile join's work is the chunks its tiles ran
-    nq, nw = 1, CAPACITY // blk
-    chunks_run = gated["chunks_run"]
-    j_bytes = (q.numel() * 4 + chunks_run * blk * chunk * 4  # q, w slabs run
-               + CAPACITY * 4 * (2 + sqw.shape[1]) + MICRO * 4 * (2 + sqq.shape[1])
-               + nq * nw * 4                                    # gate
-               + nq * nw * (tile_k * 8 + blk * 4 + 8))          # outputs
-    j_flops = chunks_run * 2 * blk * blk * chunk
-    j_bound, j_by = bound_ms(j_bytes, j_flops)
-    # the dense join writes its whole (Qp, Wp) output and reads what the
-    # candidate join reads, over the chunks its (ungated) tiles ran
-    d_chunks = d_win["chunks_run"]
-    d_bytes = (q.numel() * 4 + d_chunks * blk * chunk * 4
-               + CAPACITY * 4 * (2 + sqw.shape[1]) + MICRO * 4 * (2 + sqq.shape[1])
-               + MICRO * CAPACITY * 4 + nq * nw * 8)
-    d_bound, d_by = bound_ms(d_bytes, d_chunks * 2 * blk * blk * chunk)
+    # written once; the tile join's work is the chunks its tiles ran.  The
+    # f32 bound takes the CUDA cores' rate; the 3xTF32 one, three TF32
+    # tensor-core products per multiply-add (the kernels' own arithmetic)
+    nq, nw = 1, nw_tiles
+
+    def join_bounds(chunks_run, dense_out):
+        nbytes = (q.numel() * 4 + chunks_run * blk * chunk * 4   # q, w slabs run
+                  + CAPACITY * 4 * (2 + sqw.shape[1]) + MICRO * 4 * (2 + sqq.shape[1])
+                  + (MICRO * CAPACITY * 4 + nq * nw * 8 if dense_out   # scores, counts
+                     else nq * nw * 4 + nq * nw * (tile_k * 8 + blk * 4 + 8)))
+        flops = chunks_run * 2 * blk * blk * chunk
+        f32, by = bound_ms(nbytes, flops)
+        return {"bound_ms": f32, "bound_by": by,
+                "bound_3xtf32_ms": bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)[0],
+                "chunks_run": chunks_run}
+
+    j_bounds = join_bounds(gated["chunks_run"], False)
+    d_bounds = join_bounds(d_win["chunks_run"], True)
     ns, nc = cnorm.shape
     g_bytes = 4 * (qa.numel() + qcn.numel() + vmax.numel() + cnorm.numel() + nq * ns)
     g_flops = 2 * MICRO * ns * (D + nc)
@@ -367,13 +398,15 @@ def phase_kernels(dev) -> dict:
           "dense_cases": dense_cases, "tile_edges": edges})
     return {
         "sssj_cand": {"max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-                      "ms": gated["ms"], "plain_ms": gated["plain_ms"],
-                      "bound_ms": j_bound, "bound_by": j_by},
+                      "ms": gated["ms"], "plain_ms": gated["plain_ms"], **j_bounds,
+                      "ms_all_dead": dead["ms"], "ms_all_live": live["ms"],
+                      "all_live": join_bounds(live["chunks_run"], False)},
         "gate_ub": {"max_abs_err": ub_err, "ms": g_ms, "plain_ms": g_plain,
                     "bound_ms": g_bound, "bound_by": g_by},
         "sssj_dense": {"max_abs_err": max(c["max_abs_err"] for c in dense_cases.values()),
-                       "ms": d_win["ms"], "plain_ms": d_win["plain_ms"],
-                       "bound_ms": d_bound, "bound_by": d_by},
+                       "ms": d_win["ms"], "plain_ms": d_win["plain_ms"], **d_bounds,
+                       "ms_all_dead": d_dead["ms"], "ms_all_live": d_live["ms"],
+                       "all_live": join_bounds(d_live["chunks_run"], True)},
     }
 
 
@@ -876,6 +909,8 @@ def main() -> int:
     for row in rows:
         row.update(launches=launches[row["name"]], library_ms=None,
                    **kern[row["name"]])
+        if row["name"] in device["ptxas_joins"]:
+            row["ptxas_full_128"] = device["ptxas_joins"][row["name"]]
     # flash attention: the f32 qwen3-0.6b case's numbers, the bf16 ones beside
     rows.append({"name": "flash_attn", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attn.cu",

@@ -10,8 +10,9 @@ times each wrapper with CUDA events (``chip_smoke.cuda_ms``):
 
 * the tile joins and the gate bound at the main path's shapes (one query
   tile of 128 rows against a window of 262,144 x 1024, 128 x 128 tiles,
-  chunk 128): ``sssj_cand`` on the gated window and on the self join,
-  ``sssj_dense`` on the window, ``gate_ub``; then the same at 256 x 256
+  chunk 128): ``sssj_cand`` on the gated window, on the self join and
+  with every tile live (``chip_smoke.py``'s all-live case), ``sssj_dense``
+  on the window and all live, ``gate_ub``; then the same at 256 x 256
   tiles (256 queries, ``tile_k`` 65,536), recorded as the error's text in
   a checkout whose wrappers refuse that edge;
 * flash attention in f32 and bf16 at qwen3-0.6b's heads (B 1, H 16,
@@ -61,11 +62,15 @@ def _join_times(dev, edge: int, reps: int) -> dict:
     kw = dict(theta=cs.THETA, lam=cs.LAM, block_q=edge, block_w=edge, chunk_d=chunk)
     ckw = dict(kw, tile_k=2 * cs.MICRO if edge == 128 else edge * edge)
     qa, qcn = q.abs(), gate_mod.chunk_norms(q, chunk)
+    # every tile live: the window squeezed into 2.6 time units, gate all ones
+    live = (q, w, col(tq), col(400.0 - (400.0 - tw) / 100.0), col(uq), col(uw), sqq, sqw)
     calls = {
         "cand_gated": lambda: cand(*args, **ckw, gate=gate.int()),
+        "cand_all_live": lambda: cand(*live, **ckw, gate=torch.ones_like(gate).int()),
         "cand_self": lambda: cand(q, q, col(tq), col(tq), col(uq), col(uq), sqq, sqq,
                                   **ckw),
         "dense": lambda: dense(*args, **kw),
+        "dense_all_live": lambda: dense(*live, **kw),
         "gate_ub": lambda: gate_mod.gate_ub(qa, qcn, summary.vmax, summary.cnorm,
                                             block_q=edge),
     }

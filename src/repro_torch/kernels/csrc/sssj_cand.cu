@@ -21,14 +21,14 @@
 // ranks each sub-tile's hits within their row by a scan over column
 // groups, after the row's hits in the sub-tiles to its left.
 //
-// What bounds it on an H100: the f32 multiply-adds of the live tiles
-// (2 * bq * bw * chunk_d per chunk run), at the 67 TFLOP/s of the CUDA
-// cores, since the dot products must stay in IEEE f32 (TF32 moves scores
-// by ~1e-3 and pairs across theta).  Dead tiles cost their lane loads and
-// a (tile_k,) fill.  The core's register tiling is described in
+// What bounds it on an H100: the 3xTF32 tensor-core products of the live
+// tiles (3 x 2 x bq x bw x chunk_d per chunk run, at 495 TFLOP/s of
+// TF32); a gated-off tile reads its gate bit and writes a (tile_k,) fill,
+// and a time-dead one also its lanes.  The score core is described in
 // tile_scores.cuh.  The TPU kernel's cumsum + binary search becomes a
-// block-wide exclusive scan over per-row column-group hit counts (groups
-// of the VN columns a thread holds side by side), which gives every hit
+// block-wide exclusive scan: the scores, row-major in shared memory, are
+// cut into runs of EPT adjacent entries of one row, one run a thread in
+// row-major order, so a scan over the runs' hit counts gives every hit
 // its row-major rank; the compiled tile's spare rows and columns hold no
 // hit, so they move no rank.
 #include "tile_scores.cuh"
@@ -37,124 +37,108 @@ namespace {
 
 using namespace sssj;
 
+// A tile's empty outputs: no candidate, no row hit, nothing emitted
+__device__ __forceinline__ void empty_outputs(int* out_idx, float* out_sc, int* rows,
+                                              int* emitted, int tile_k, int bq) {
+  for (int s = threadIdx.x; s < tile_k; s += blockDim.x) {
+    out_idx[s] = -1;
+    out_sc[s] = 0.0f;
+  }
+  for (int r = threadIdx.x; r < bq; r += blockDim.x) rows[r] = 0;
+  if (threadIdx.x == 0) *emitted = 0;
+}
+
 template <class T>
-__global__ void __launch_bounds__(NT) cand_kernel(
+__global__ void __launch_bounds__(NT, 1) cand_kernel(
     const TileIn in, int* __restrict__ cand_idx, float* __restrict__ cand_score,
     int* __restrict__ emitted, int* __restrict__ row_hits,
     int* __restrict__ iters, int tile_k) {
-  constexpr int BQ = T::BQ, BW = T::BW, RM = T::RM, RN = T::RN, VN = T::VN;
-  constexpr int NGROUP = BW / VN;         // column groups per tile row: the scan's unit
-  constexpr int PER = BQ * NGROUP / NT;   // groups scanned per thread
-  constexpr int TPR = NT / BQ;            // threads that scan one row
-  static_assert(PER * NT == BQ * NGROUP && PER * TPR == NGROUP, "scan layout");
-  static_assert(BQ * NGROUP <= T::SLAB, "scan buffer reuses the slabs");
-  static_assert(RM * RN <= 64, "hit bits fit one word");
+  constexpr int BQ = T::BQ, BW = T::BW;
+  constexpr int NS = BQ * BW / 4 < NT ? BQ * BW / 4 : NT;  // threads in the select
+  constexpr int TPR = NS / BQ;   // threads per tile row in the select
+  constexpr int EPT = BW / TPR;  // entries per thread: a run of one row
+  static_assert(EPT % 4 == 0 && EPT <= 64 && 32 % TPR == 0,
+                "runs of float4, hits in one word, a row's threads in one warp");
 
-  __shared__ __align__(16) float slab[T::SLAB];  // q | w; then the scan
-  __shared__ Lanes<BQ, BW> L;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<T>& sm = smem_of<T>(smem_raw);
   __shared__ int warp_tot[NT / 32];
 
   const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x;
   const int bq = in.bq, bw = in.bw;
-
-  float acc[RM][RN], dec[RM][RN];
-  const int k = tile_scores<T>(in, L, slab, acc, dec);
-  if (tid == 0) iters[tile] = k;
-
+  const size_t q0 = (size_t)blockIdx.y * bq, w0 = (size_t)blockIdx.x * bw;
   int* out_idx = cand_idx + tile * tile_k;
   float* out_sc = cand_score + tile * tile_k;
-  if (k == 0) {  // dead before the first chunk: nothing can emit
-    for (int s = tid; s < tile_k; s += NT) {
-      out_idx[s] = -1;
-      out_sc[s] = 0.0f;
-    }
-    for (int r = tid; r < bq; r += NT) row_hits[tile * bq + r] = 0;
-    if (tid == 0) emitted[tile] = 0;
+
+  // dead before the first chunk (gated off, or no decay reaches theta):
+  // nothing can emit, and a gated-off tile reads nothing else
+  bool live = in.gate == nullptr || in.gate[tile] > 0;
+  if (live) {
+    stage_lanes<T>(in, sm.L, q0, bq, w0, bw);
+    live = tile_may_live<T>(in, sm);
+  }
+  if (live) {
+    tile_prefetch<T>(in, sm, q0, w0);
+    live = tile_decays_reach<T>(in, sm);
+  }
+  if (!live) {
+    cp_async_wait<0>();  // the prefetch, if any, has landed
+    if (tid == 0) iters[tile] = 0;
+    empty_outputs(out_idx, out_sc, row_hits + tile * bq, emitted + tile, tile_k, bq);
     return;
   }
 
-  // scores and hits: an entry emits when score >= theta_row and score > 0
-  // (a spare row's theta is +inf, a spare column's decay 0)
-  uint64_t hits = 0;
-#pragma unroll
-  for (int a = 0; a < RM; ++a) {
-    const int i = T::row(ty, a);
-#pragma unroll
-    for (int b = 0; b < RN; ++b) {
-      const float s = __fmul_rn(acc[a][b], dec[a][b]);
-      acc[a][b] = s;
-      if (s >= L.th[i] && s > 0.0f) hits |= 1ull << (a * RN + b);
-    }
-  }
-
-  // per (row, column group) hit counts; the slabs are free after the
-  // chunk loop's last barrier
-  int* gcount = reinterpret_cast<int*>(slab);
-  constexpr uint64_t GROUP_BITS = (1ull << VN) - 1;
-#pragma unroll
-  for (int a = 0; a < RM; ++a)
-#pragma unroll
-    for (int h = 0; h < RN / VN; ++h)
-      gcount[T::row(ty, a) * NGROUP + h * 16 + tx] =
-          __popcll((hits >> (a * RN + h * VN)) & GROUP_BITS);
+  Acc<T> acc;
+  const int k = tile_dot<T>(in, sm, q0, w0, acc);
+  if (tid == 0) iters[tile] = k;
+  float* S = sm.ring[0];  // the ring is free after the chunk loop
+  scores_to_smem<T, true>(sm, acc, S);
   __syncthreads();
 
-  // block-wide exclusive scan over the groups in row-major order: thread t
-  // owns groups [t*PER, (t+1)*PER), a 1/TPR share of row t/TPR
-  int loc[PER];
-  int sum = 0;
+  // thread t < NS holds the EPT entries from column (t % TPR) * EPT of
+  // row t / TPR: threads in order cover the tile in row-major order (the
+  // rest hold none)
+  const bool sel = tid < NS;
+  const int i = tid / TPR, c0 = (tid % TPR) * EPT;
+  const float* srow = S + i * T::LDS + c0;
+  uint64_t hits = 0;
+  if (sel) {
 #pragma unroll
-  for (int e = 0; e < PER; ++e) {
-    loc[e] = gcount[tid * PER + e];
-    sum += loc[e];
+    for (int v = 0; v < EPT / 4; ++v) {
+      const float4 x = *reinterpret_cast<const float4*>(srow + 4 * v);
+      hits |= (uint64_t)((x.x > 0.0f) | (x.y > 0.0f) << 1 | (x.z > 0.0f) << 2 |
+                         (x.w > 0.0f) << 3) << (4 * v);
+    }
   }
+  const int cnt = __popcll(hits);
+
+  // block-wide exclusive scan of the counts: each run's first rank
   const int lane = tid & 31, warp = tid >> 5;
-  int incl = sum;
+  int incl = cnt;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int n = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += n;
   }
   if (lane == 31) warp_tot[warp] = incl;
-  int row_total = sum;
+  int row_total = cnt;
 #pragma unroll
   for (int o = 1; o < TPR; o <<= 1) row_total += __shfl_xor_sync(0xffffffffu, row_total, o);
   __syncthreads();
-  int run = incl - sum, total = 0;
+  int rank = incl - cnt, total = 0;
 #pragma unroll
   for (int v = 0; v < NT / 32; ++v) {
-    if (v < warp) run += warp_tot[v];
+    if (v < warp) rank += warp_tot[v];
     total += warp_tot[v];
   }
-  if (tid % TPR == 0 && (T::FULL || tid / TPR < bq))
-    row_hits[tile * bq + tid / TPR] = row_total > 0;
-#pragma unroll
-  for (int e = 0; e < PER; ++e) {
-    gcount[tid * PER + e] = run;
-    run += loc[e];
-  }
-  __syncthreads();
+  if (sel && tid % TPR == 0 && (T::FULL || i < bq)) row_hits[tile * bq + i] = row_total > 0;
 
   // every hit goes to its row-major rank; the first tile_k are kept
-#pragma unroll
-  for (int a = 0; a < RM; ++a) {
-    const int i = T::row(ty, a);
-#pragma unroll
-    for (int h = 0; h < RN / VN; ++h) {
-      int rank = gcount[i * NGROUP + h * 16 + tx];
-#pragma unroll
-      for (int bb = 0; bb < VN; ++bb) {
-        const int b = h * VN + bb;
-        if ((hits >> (a * RN + b)) & 1ull) {
-          if (rank < tile_k) {
-            out_idx[rank] = i * bw + T::col(tx, b);
-            out_sc[rank] = acc[a][b];
-          }
-          ++rank;
-        }
-      }
-    }
+  for (uint64_t m = hits; m && rank < tile_k; m &= m - 1, ++rank) {
+    const int b = __ffsll((long long)m) - 1;
+    out_idx[rank] = i * bw + c0 + b;
+    out_sc[rank] = srow[b];
   }
   for (int s = min(total, tile_k) + tid; s < tile_k; s += NT) {
     out_idx[s] = -1;
@@ -195,12 +179,7 @@ __global__ void __launch_bounds__(NT) cand_big_kernel(
   int* out_idx = cand_idx + tile * tile_k;
   float* out_sc = cand_score + tile * tile_k;
   if (k == 0) {  // dead before the first chunk: nothing can emit
-    for (int s = tid; s < tile_k; s += NT) {
-      out_idx[s] = -1;
-      out_sc[s] = 0.0f;
-    }
-    for (int r = tid; r < bq; r += NT) row_hits[tile * bq + r] = 0;
-    if (tid == 0) emitted[tile] = 0;
+    empty_outputs(out_idx, out_sc, row_hits + tile * bq, emitted + tile, tile_k, bq);
     return;
   }
 
@@ -374,7 +353,9 @@ extern "C" int sssj_cand_launch(
     });
   return with_tile(bq, bw, [&](auto tile) {
     using T = decltype(tile);
-    cand_kernel<T><<<grid, NT, 0, st>>>(
+    const int err = allow_smem(cand_kernel<T>, smem_bytes<T>());
+    if (err) return err;
+    cand_kernel<T><<<grid, NT, smem_bytes<T>(), st>>>(
         in, (int*)cand_idx, (float*)cand_score, (int*)emitted, (int*)row_hits,
         (int*)iters, tile_k);
     return (int)cudaGetLastError();

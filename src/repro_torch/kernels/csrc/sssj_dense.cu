@@ -18,12 +18,13 @@
 //
 // What bounds it on an H100: the (Qp, Wp) f32 output, which every call
 // writes in full (128 x 262,144 x 4 B = 134 MB at the engine's window,
-// 40 us at 3.35 TB/s), and the f32 multiply-adds of the live tiles (2 *
-// bq * bw * chunk_d per chunk run, at the 67 TFLOP/s of the CUDA cores).
-// Design: the score core is the candidate kernel's, so the two cannot
-// drift; when the tile fills its compiled width (bw == BW) each thread
-// stores its rows as float4 (float2) runs, 16 threads covering a row's
-// contiguous bytes; a narrower tile stores its columns one by one.
+// 40 us at 3.35 TB/s), and the 3xTF32 tensor-core products of the live
+// tiles (3 x 2 x bq x bw x chunk_d per chunk run, at 495 TFLOP/s of
+// TF32).  Design: the score core is the candidate kernel's, so the two
+// cannot drift; the scores pass through shared memory, from where BW / 4
+// threads store each of the tile's rows as float4 runs over its
+// contiguous bytes when the tile fills its compiled width (bw == BW), and
+// one by one otherwise; a time-dead tile stores zeros.
 #include "tile_scores.cuh"
 
 namespace {
@@ -31,58 +32,58 @@ namespace {
 using namespace sssj;
 
 template <class T>
-__global__ void __launch_bounds__(NT) dense_kernel(
+__global__ void __launch_bounds__(NT, 1) dense_kernel(
     const TileIn in, float* __restrict__ out, int* __restrict__ iters,
     int* __restrict__ counts, int Wp) {
-  constexpr int RM = T::RM, RN = T::RN, VN = T::VN;
-  __shared__ __align__(16) float slab[T::SLAB];
-  __shared__ Lanes<T::BQ, T::BW> L;
+  constexpr int F4 = T::BW / 4;   // float4 runs per tile row
+  constexpr int RPP = NT / F4;    // tile rows per pass of the block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<T>& sm = smem_of<T>(smem_raw);
   __shared__ int tile_count;
 
   const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x;
   const int bq = in.bq, bw = in.bw;
   const size_t q0 = (size_t)blockIdx.y * bq, w0 = (size_t)blockIdx.x * bw;
   const bool full_width = T::FULL || bw == T::BW;
-  if (tid == 0) tile_count = 0;  // tile_scores syncs before any use
+  if (tid == 0) tile_count = 0;  // stage_lanes syncs before any use
+  stage_lanes<T>(in, sm.L, q0, bq, w0, bw);
+  bool live = tile_may_live<T>(in, sm);
+  if (live) {
+    tile_prefetch<T>(in, sm, q0, w0);
+    live = tile_decays_reach<T>(in, sm);
+    if (!live) cp_async_wait<0>();  // the prefetch has landed
+  }
+  const float* S = sm.ring[0];  // the ring is free after the chunk loop
+  int k = 0;
+  if (live) {  // a time-dead tile writes zeros
+    Acc<T> acc;
+    k = tile_dot<T>(in, sm, q0, w0, acc);
+    scores_to_smem<T, false>(sm, acc, sm.ring[0]);
+    __syncthreads();
+  }
 
-  float acc[RM][RN], dec[RM][RN];
-  const int k = tile_scores<T>(in, L, slab, acc, dec);
-
+  // the tile's rows from S, F4 threads covering a row's contiguous bytes
   int count = 0;
+  const int f = tid % F4;
+  for (int r = tid / F4; r < T::BQ; r += RPP) {
+    if (!T::FULL && r >= bq) break;
+    const float4 v = live ? *reinterpret_cast<const float4*>(S + r * T::LDS + 4 * f)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    count += (v.x > 0.0f) + (v.y > 0.0f) + (v.z > 0.0f) + (v.w > 0.0f);
+    float* dst = out + (q0 + r) * Wp + w0 + 4 * f;
+    if (full_width) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int a = 0; a < RM; ++a) {
-    const int i = T::row(ty, a);
-    if (!T::FULL && i >= bq) continue;
-    float* row = out + (q0 + i) * Wp + w0;
-#pragma unroll
-    for (int h = 0; h < RN / VN; ++h) {
-      float v[VN];
-#pragma unroll
-      for (int bb = 0; bb < VN; ++bb) {
-        const int b = h * VN + bb;
-        float s = 0.0f;
-        if (k > 0) {  // a spare column's decay is 0, so its score too
-          s = __fmul_rn(acc[a][b], dec[a][b]);
-          s = s >= L.th[i] ? s : 0.0f;
-        }
-        v[bb] = s;
-        count += s > 0.0f;
-      }
-      const int c = T::col(tx, h * VN);
-      if (full_width) {
-        if constexpr (VN == 4)
-          *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
-        else
-          *reinterpret_cast<float2*>(row + c) = make_float2(v[0], v[1]);
-      } else {
-#pragma unroll
-        for (int bb = 0; bb < VN; ++bb)
-          if (c + bb < bw) row[c + bb] = v[bb];
-      }
+      for (int x = 0; x < 4; ++x)
+        if (4 * f + x < bw) dst[x] = e[x];
     }
   }
-  if (count) atomicAdd(&tile_count, count);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_xor_sync(0xffffffffu, count, o);
+  if ((tid & 31) == 0 && count) atomicAdd(&tile_count, count);
   __syncthreads();
   if (tid == 0) {
     iters[tile] = k;
@@ -169,8 +170,10 @@ extern "C" int sssj_dense_launch(
     });
   return with_tile(bq, bw, [&](auto tile) {
     using T = decltype(tile);
-    dense_kernel<T><<<grid, NT, 0, st>>>(in, (float*)out, (int*)iters,
-                                         (int*)counts, Wp);
+    const int err = allow_smem(dense_kernel<T>, smem_bytes<T>());
+    if (err) return err;
+    dense_kernel<T><<<grid, NT, smem_bytes<T>(), st>>>(in, (float*)out, (int*)iters,
+                                                       (int*)counts, Wp);
     return (int)cudaGetLastError();
   });
 }

@@ -4,40 +4,68 @@
 //
 // One thread block of NT threads owns one (bq query rows x bw window rows)
 // tile, run in the compiled tile <BQ, BW> that holds it (each edge the
-// smallest of 32, 64, 128 that is >= the runtime edge):
-//   1. it stages the tile's lanes (timestamps, uids, stream ids and
-//      per-row theta/lambda) in shared memory;
-//   2. it builds the decay exp(-lambda |dt|) with the uid-order,
-//      empty-slot and stream masks folded in as zeros, and kills the tile
-//      when no entry reaches theta or when its pre-launch gate bit is 0;
-//   3. it accumulates q . w^T one chunk_d slab at a time and stops once
-//      (acc + |q^{>k}| |w^{>k}|) . decay < theta holds for the whole tile.
+// smallest of 32, 64, 128 that is >= the runtime edge).  The callers
+//   1. read the tile's pre-launch gate bit first: a gated-off tile writes
+//      its empty outputs and returns, with no lanes staged and no decay;
+//   2. stage the tile's lanes (timestamps, uids, stream ids and per-row
+//      theta/lambda) in shared memory (stage_lanes) and kill the tile when
+//      no decay exp(-lambda |dt|), with the uid-order, empty-slot and
+//      stream masks folded in as zeros, reaches theta: a bound from the
+//      hull of the window timestamps first (tile_may_live, no expf), then,
+//      with the first sub-slabs' loads already in flight (tile_prefetch),
+//      every decay, kept in shared memory (tile_decays_reach);
+//   3. run tile_dot: q . w^T one chunk_d slab at a time, stopping once
+//      (acc + |q^{>k}| |w^{>k}|) . decay < theta holds for the whole tile;
+//   4. write the scores acc . decay, row-major, into shared memory
+//      (scores_to_smem), from where they select or store them.
 // Rows at or past bq and columns at or past bw are the compiled tile's
-// spare slots: they read nothing, and take no part in the tile's kill,
-// its bound check or (in the callers) the emission; a tile whose edges
-// equal the compiled ones runs the FULL instance, compiled without the
-// spare-slot checks (on an H100 they cost a 128 x 128 tile about 15 %).
-// Each thread holds a (BQ/16) x (BW/16) block of the accumulators and of
-// the decay in registers (the decay is computed once, not per chunk);
-// q and w are staged through shared memory in 32-column sub-slabs, every
-// global load of a sub-slab issued before the first store, stored k-major
-// so each thread reads its rows and columns as float4 (or float2) runs
-// without bank conflicts; q, w and the norms are read through the
-// read-only cache (__ldg).  The bound check uses
-// __fadd_rn/__fmul_rn, and callers form the final score acc * decay with
-// __fmul_rn, so nvcc does not contract them into an fma: they round as
-// the plain version's separate ops do.
+// spare slots: they read zeros, and take no part in the tile's kill, its
+// bound check or the emission; a tile whose edges equal the compiled ones
+// runs the FULL instance, compiled without the spare-slot checks.
 //
-// A tile with an edge above MAX_EDGE (big_tile_scores) keeps the
-// reference's per-tile semantics (one kill, one early exit, one row-major
-// ranking over the whole tile) with the same block: it walks the tile's
-// sub-tiles of at most MAX_EDGE x MAX_EDGE (run in the compiled tile
-// <BQ, BW> with spare slots, an edge above 128 as 128) inside each chunk,
-// keeps the accumulators in an f32 workspace of the join's (Qp, Wp)
-// shape between chunks (each thread reads back only what it wrote), and
-// ORs every sub-tile's bound check into one block-wide flag per chunk.
-// The decay is recomputed per sub-tile and chunk (64 expf a thread against
-// 16K multiply-adds).  Speed at such edges is not what this path is for.
+// What bounds it on an H100, and the design.  The dot products must keep
+// f32 accuracy (TF32 alone moves scores by ~1e-3 and pairs across theta),
+// so each product is 3xTF32 on the tensor cores: x = hi + lo, hi =
+// tf32(x) and lo = tf32(x - hi), and lo.hi + hi.lo + hi.hi by
+// wgmma.m64nNk8 (two warpgroups: a 128-row tile gives each 64 rows, a
+// narrower one half the columns).  The work is bound by those products,
+// 3 x 2 x bq x bw x chunk_d per chunk run at 495 TFLOP/s of TF32.  A (the
+// q rows) comes from registers, split as each thread loads its fragments;
+// B (the w rows) from shared memory in the 128-byte swizzle, hi in place
+// and lo beside it, split once per element by a pass over the sub-slab.
+// Not mma.sync.m16n8k8: on the H100 its TF32 products ran well below
+// wgmma's rate in trials, and its fragments split each operand two to
+// four times over.  The tensor cores' f32 accumulation truncates; summed
+// over d = 1024 in one accumulator that bias broke the 1e-5 score
+// tolerance at scores near 1 on the card, so each 128 features are summed
+// from zero and added to the accumulator with IEEE adds (tile_dot).  q and
+// w stream through a ring of NSTAGE sub-slabs of KS columns in dynamic
+// shared memory, filled by cp.async NSTAGE - 1 sub-slabs ahead of the
+// tensor cores, and each sub-slab is split while the one before it is on
+// the tensor cores (q, 128 x 1024 f32, is read by every block and stays
+// in L2; each block reads its window rows once).  The two accumulator
+// sets (64 + 64 floats a thread at 128 x 128) and the A fragments take
+// 255 registers, and the ring, two sub-slabs' lo parts and the tile's
+// decays (64 KB, computed once per live tile instead of at every bound
+// check) about 200 KB of shared memory, so one block of 8 warps runs on
+// each SM.  The bound check and the final score use
+// __fadd_rn/__fmul_rn, so nvcc does not contract them into an fma: they
+// round as the plain version's ops do.
+//
+// A tile with an edge above MAX_EDGE (big_tile_scores) runs on the CUDA
+// cores in f32 multiply-adds.  It keeps the reference's per-tile semantics
+// (one kill, one early exit, one row-major ranking over the whole tile)
+// with one block, walking the tile's sub-tiles of at most MAX_EDGE x
+// MAX_EDGE (run in the compiled tile <BQ, BW> with spare slots, an edge
+// above 128 as 128) inside each chunk, keeping the accumulators in an f32
+// workspace of the join's (Qp, Wp) shape between chunks (each thread reads
+// back only what it wrote), and ORing every sub-tile's bound check into
+// one block-wide flag per chunk.  Each thread holds a (BQ/16) x (BW/16)
+// block of a sub-tile's accumulators and decay in registers; q and w are
+// staged through shared memory in SUB-column sub-slabs, stored k-major so
+// each thread reads its rows and columns as float4 (or float2) runs.  The
+// decay is recomputed per sub-tile and chunk.  Speed at such edges is not
+// what this path is for.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,12 +74,16 @@
 
 namespace sssj {
 
-constexpr int NT = 256;         // threads: a 16 x 16 grid
-constexpr int SUB = 32;         // feature columns per shared-memory sub-slab
+constexpr int NT = 256;         // threads: 8 warps, or a 16 x 16 grid on the big-tile path
+constexpr int SUB = 32;         // feature columns per shared-memory sub-slab (big tiles)
+constexpr int KS = 32;          // feature columns per cp.async sub-slab (tensor-core path)
+constexpr int NSTAGE = 3;       // sub-slabs in the ring: two in flight while one is used
+constexpr int FLUSH = 4;        // sub-slabs (128 features) summed on the tensor cores per IEEE add
 constexpr int MAX_EDGE = 128;   // the largest compiled tile edge; larger tiles run in sub-tiles
 
-// The compiled tile <BQ, BW>: thread (ty, tx) owns RM rows and RN columns,
-// in runs of VM (VN) adjacent ones, the runs 16 runs apart.  FULL marks
+// The compiled tile <BQ, BW>: on the big-tile path thread (ty, tx) owns RM
+// rows and RN columns, in runs of VM (VN) adjacent ones, the runs 16 runs
+// apart.  FULL marks
 // the instance for runtime edges equal to the compiled ones (bq == BQ,
 // bw == BW): it has no spare slots, and compiles without their checks.
 template <int BQ_, int BW_, bool FULL_>
@@ -62,6 +94,12 @@ struct Tile {
   static constexpr int VM = RM < 4 ? RM : 4, VN = RN < 4 ? RN : 4;
   static constexpr int LDQ = BQ + 4, LDW = BW + 4;  // sub-slab strides (16-byte aligned)
   static constexpr int SLAB = SUB * (LDQ + LDW);    // floats: q | w sub-slabs
+  // the tensor-core layout: each warpgroup's wgmma is NW columns wide (all
+  // of a 128-row tile's, half of a narrower one's), ACC floats a thread; a
+  // ring stage holds KS columns of the q and w rows
+  static constexpr int NW = BQ == 128 ? BW : BW / 2, ACC = NW / 2;
+  static constexpr int STAGE = (BQ + BW) * KS;
+  static constexpr int LDS = BW + 4;  // row stride of the staged scores
   static_assert(RM >= 2 && RN >= 2 && RM * RN <= 64, "tile edges 32, 64 or 128");
 
   __device__ static __forceinline__ int row(int ty, int a) {
@@ -148,7 +186,7 @@ __device__ __forceinline__ void stage_lanes(const TileIn& in, Lanes<T::BQ, T::BW
                                             size_t q0, int nr, size_t w0, int nc) {
   const int tid = threadIdx.x;
   const bool multi = in.sidq != nullptr;
-  for (int r = tid; r < T::BQ; r += NT) {
+  for (int r = tid; r < T::BQ; r += blockDim.x) {
     const bool in_r = T::FULL || r < nr;
     L.tq[r] = in_r ? in.tq[q0 + r] : 0.0f;
     L.uq[r] = in_r ? in.uq[q0 + r] : -1;
@@ -156,7 +194,7 @@ __device__ __forceinline__ void stage_lanes(const TileIn& in, Lanes<T::BQ, T::BW
     L.lam[r] = in_r && multi ? in.lmq[q0 + r] : in.lam;
     L.sq[r] = in_r && multi ? in.sidq[q0 + r] : 0;
   }
-  for (int j = tid; j < T::BW; j += NT) {
+  for (int j = tid; j < T::BW; j += blockDim.x) {
     const bool in_j = T::FULL || j < nc;
     L.tw[j] = in_j ? in.tw[w0 + j] : 0.0f;
     L.uw[j] = in_j ? in.uw[w0 + j] : -1;
@@ -271,42 +309,509 @@ __device__ __forceinline__ bool chunk_bound(const TileIn& in, const Lanes<T::BQ,
   return alive_k;
 }
 
-// The tile (blockIdx.y, blockIdx.x)'s dot products, into acc, and its
-// decay, into dec: returns the chunks run (0 for a dead tile, whose acc
-// stays 0).  Fills L; uses slab (T::SLAB floats) as scratch, free again
-// on return.  Every thread of the block must call it.
+// ---------------------------------------------------------------------
+// The tensor-core core of tiles with both edges up to MAX_EDGE
+// ---------------------------------------------------------------------
+
+// x as TF32 (10 stored mantissa bits), rounded to nearest with ties away
+// from zero: the bits cvt.rna.tf32.f32 gives a finite x, in two integer
+// operations (on sm_90 the cvt takes four, with its inf/NaN check)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 22 bits: hi = tf32(x), lo = tf32(x - hi) (the
+// difference is exact)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory without passing through
+// registers; n < 16 fills the rest with zeros (n = 0: all zeros, src unread)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// a K-major shared-memory matrix descriptor in the 128-byte swizzle: rows
+// of 128 bytes, 8-row groups 1,024 bytes apart (the leading offset is
+// unused in this layout)
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(16 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from touching accumulators while a wgmma owns them
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 16, f32) (+)= a (64 x 8, registers) . b (8 x 16, smem, K-major), TF32
+__device__ __forceinline__ void wgmma_tf32_16(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, f32) (+)= a (64 x 8, registers) . b (8 x 32, smem, K-major), TF32
+__device__ __forceinline__ void wgmma_tf32_32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) (+)= a (64 x 8, registers) . b (8 x 64, smem, K-major), TF32
+__device__ __forceinline__ void wgmma_tf32_64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) (+)= a (64 x 8, registers) . b (8 x 128, smem, K-major), TF32
+__device__ __forceinline__ void wgmma_tf32_128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  if constexpr (N == 16) wgmma_tf32_16(d, a, db, accumulate);
+  else if constexpr (N == 32) wgmma_tf32_32(d, a, db, accumulate);
+  else if constexpr (N == 64) wgmma_tf32_64(d, a, db, accumulate);
+  else wgmma_tf32_128(d, a, db, accumulate);
+}
+
+// The dynamic shared memory of the tensor-core kernels (1,024-byte
+// aligned by smem_of): the ring of NSTAGE sub-slabs (q rows | w rows,
+// KS floats each, in the 128-byte swizzle), reused for the row-major
+// scores once the chunk loop is done; the lo parts of two sub-slabs' w
+// rows, in the same layout; the decays, the lanes and the suffix norms
 template <class T>
-__device__ __forceinline__ int tile_scores(const TileIn& in, Lanes<T::BQ, T::BW>& L,
-                                           float* slab, float (&acc)[T::RM][T::RN],
-                                           float (&dec)[T::RM][T::RN]) {
-  const int tj = blockIdx.x, ti = blockIdx.y, nw = gridDim.x;
-  const size_t tile = (size_t)ti * nw + tj;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int bq = in.bq, bw = in.bw;
-  const size_t q0 = (size_t)ti * bq, w0 = (size_t)tj * bw;
+struct Smem {
+  float ring[NSTAGE][T::STAGE];
+  float wlo[2][T::BW * KS];    // the lo parts of two sub-slabs' w rows
+  float dec[T::ACC * NT];     // each thread's decays, entry e at e * NT + thread
+  Lanes<T::BQ, T::BW> L;
+  float na[NSTAGE][T::BQ];     // the suffix norms after chunk k, at k % NSTAGE
+  float nb[NSTAGE][T::BW];
+  float red[2 * NT / 32];     // per-warp partials of a block reduction
+  static_assert(T::BQ * T::LDS <= NSTAGE * T::STAGE, "the scores fit in the ring");
+  static_assert(T::STAGE * 4 % 1024 == 0, "stages keep the swizzle's alignment");
+};
+template <class T>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(Smem<T>) + 1024;  // room to align the base
+}
+template <class T>
+__device__ __forceinline__ Smem<T>& smem_of(unsigned char* raw) {
+  // an offset into raw, not an integer cast, so nvcc still knows the
+  // accesses are to shared memory
+  return *reinterpret_cast<Smem<T>*>(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023));
+}
 
-  stage_lanes<T>(in, L, q0, bq, w0, bw);
-  const uint32_t rin = T::FULL ? ~0u : rows_inside<T>(ty, bq);
-  const uint32_t cin = T::FULL ? ~0u : cols_inside<T>(tx, bw);
+// float index of (row r, column c) in a sub-slab: 16-byte piece c / 4 of
+// row r is stored at piece (c / 4) ^ (r % 8), the hardware's 128-byte
+// swizzle (rows of KS = 32 floats), which the wgmma descriptors name
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * KS + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
 
-  // time filter at tile granularity: dot <= 1, so decay < theta everywhere
-  // means the tile cannot emit
-  int live = __syncthreads_or(tile_decay<T>(in, L, rin, cin, dec));
-  if (in.gate != nullptr && in.gate[tile] <= 0) live = 0;
-
+// Issue the loads of sub-slab c (feature columns col0 + c*KS, KS of them)
+// of the tile's rows q0.. (nr inside) and w0.. (nc inside) into buf;
+// spare rows and columns past the chunk read as zeros.  vec: every row
+// start and chunk start 16-byte aligned.
+template <class T>
+__device__ __forceinline__ void load_slab(const TileIn& in, float* buf, size_t q0, int nr,
+                                          size_t w0, int nc, size_t col0, int c, bool vec) {
+  constexpr int BQ = T::BQ, BW = T::BW;
+  const int tid = threadIdx.x, cbase = c * KS;
+  if (vec) {
+    constexpr int PQ = BQ * (KS / 4), PIECES = (BQ + BW) * (KS / 4);
 #pragma unroll
-  for (int a = 0; a < T::RM; ++a)
-#pragma unroll
-    for (int b = 0; b < T::RN; ++b) acc[a][b] = 0.0f;
-
-  int k = 0;
-  while (live && k < in.n_chunks) {
-    chunk_dot<T>(in, slab, q0, bq, w0, bw, (size_t)k * in.chunk_d, acc);
-    const bool alive_k = chunk_bound<T>(in, L, q0, w0, rin, cin, k, acc, dec);
-    ++k;
-    live = __syncthreads_or(alive_k);
+    for (int p = tid; p < PIECES; p += NT) {
+      const bool isq = p < PQ;
+      const int f = isq ? p : p - PQ, r = f / (KS / 4), part = f % (KS / 4);
+      const bool ok = (T::FULL || r < (isq ? nr : nc)) && cbase + part * 4 < in.chunk_d;
+      const float* base = isq ? in.q : in.w;
+      const float* src = ok ? base + ((isq ? q0 : w0) + r) * in.d + col0 + cbase + part * 4
+                            : base;
+      cp_async16(buf + (isq ? 0 : BQ * KS) + swz(r, part * 4), src, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < (BQ + BW) * KS; e += NT) {
+      const bool isq = e < BQ * KS;
+      const int f = isq ? e : e - BQ * KS, r = f / KS, cc = f % KS;
+      const bool ok = (T::FULL || r < (isq ? nr : nc)) && cbase + cc < in.chunk_d;
+      const float* base = isq ? in.q : in.w;
+      const float* src = ok ? base + ((isq ? q0 : w0) + r) * in.d + col0 + cbase + cc : base;
+      cp_async4(buf + (isq ? 0 : BQ * KS) + swz(r, cc), src, ok ? 4 : 0);
+    }
   }
+}
+
+// The accumulators: the 8 warps are two warpgroups of 4; a 128-row tile
+// gives each warpgroup 64 rows and every column, a narrower one gives each
+// the tile's rows (padded to the 64 of a wgmma) and half the columns.
+// Entry e of a thread lies at row erow(e), column ecol(e) (the wgmma
+// accumulator layout: warp w of the group holds rows 16 w.., in m16n8
+// tiles side by side).
+template <class T>
+__device__ __forceinline__ int erow(int e) {
+  const int wgp = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
+  return (T::BQ == 128 ? wgp * 64 : 0) + w * 16 + ((e >> 1) & 1) * 8 + g;
+}
+template <class T>
+__device__ __forceinline__ int ecol(int e) {
+  const int wgp = threadIdx.x >> 7, t = threadIdx.x & 3;
+  return (T::BQ == 128 ? 0 : wgp * T::NW) + (e >> 2) * 8 + 2 * t + (e & 1);
+}
+template <class T>
+using Acc = float[T::ACC];
+
+// Split a landed sub-slab's w rows for the tensor cores, once per
+// element: hi parts in place, lo parts into wlo (the same layout); the
+// caller syncs before the products read them
+template <class T>
+__device__ __forceinline__ void split_slab(float* buf, float* wlo) {
+  float* ws = buf + T::BQ * KS;
+#pragma unroll
+  for (int f = threadIdx.x * 4; f < T::BW * KS; f += NT * 4) {
+    const float4 x = *reinterpret_cast<const float4*>(ws + f);
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(ws + f) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(wlo + f) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to wgmma
+}
+
+// One split sub-slab on the tensor cores: p (+)= q_slab . w_slab^T, each
+// product as 3xTF32 (lo.hi + hi.lo + hi.hi; the lo.lo term, about 2^-22
+// of the product, is left out); q's rows are split as each thread loads
+// its A fragments.  accumulate = 0 starts p afresh.  overlap() runs while
+// the products do, and touches neither p nor the fragments.  Every thread
+// must call it; ends with the products done.
+template <class T, class F>
+__device__ __forceinline__ void slab_products(const float* buf, const float* wlo, Acc<T>& p,
+                                              int accumulate, F&& overlap) {
+  const int tid = threadIdx.x, wgp = tid >> 7, w = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  // this thread's A fragments of the slab's KS / 8 steps: rows +0, +8,
+  // +0, +8 and columns +0, +0, +4, +4 of its warp's 16 rows
+  uint32_t ah[KS / 8][4], al[KS / 8][4];
+  const int r0 = (T::BQ == 128 ? wgp * 64 : 0) + w * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < KS / 8; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int r = r0 + (x & 1) * 8;
+      const float v = T::BQ >= 64 || r < T::BQ ? buf[swz(r, kk * 8 + (x >> 1) * 4 + t)] : 0.0f;
+      split_tf32(v, ah[kk][x], al[kk][x]);
+    }
+  const int c0 = T::BQ == 128 ? 0 : wgp * T::NW;  // the warpgroup's first column
+  const uint32_t bh = smem_u32(buf + (T::BQ + c0) * KS), bl = smem_u32(wlo + c0 * KS);
+  reg_fence(p);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS / 8; ++kk) {  // 8 columns = 32 bytes of each row a step
+    wgmma_tf32<T::NW>(p, al[kk], desc128(bh + kk * 32), accumulate | kk);
+    wgmma_tf32<T::NW>(p, ah[kk], desc128(bl + kk * 32), 1);
+    wgmma_tf32<T::NW>(p, ah[kk], desc128(bh + kk * 32), 1);
+  }
+  wg_commit();
+  overlap();
+  wg_wait();
+#pragma unroll
+  for (int kk = 0; kk < KS / 8; ++kk)  // the fragments stay put until the products read them
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" ::"r"(ah[kk][x]), "r"(al[kk][x]));
+  reg_fence(p);
+}
+
+// Whether the thread's entry at (i, j) exists in the runtime tile (a row
+// past BQ pads a narrow tile's rows to the 64 of a wgmma)
+template <class T>
+__device__ __forceinline__ bool inside(const TileIn& in, int i, int j) {
+  return (T::BQ >= 64 || i < T::BQ) && (T::FULL || (i < in.bq && j < in.bw));
+}
+
+// The tile's time kill, first half (block-wide; every thread must call
+// it): a bound from the timestamps.  A row's decays are at most
+// expf(-lambda d), d the distance from its timestamp to the hull of the
+// tile's window timestamps (rounding is monotone, expf within a few ulp,
+// and the masks only zero decays), so when that bound stays below
+// theta (1 - 1e-4) in every row the tile is dead without a decay
+// computed; returns whether it may live.
+template <class T>
+__device__ __forceinline__ bool tile_may_live(const TileIn& in, Smem<T>& sm) {
+  const Lanes<T::BQ, T::BW>& L = sm.L;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float lo = INFINITY, hi = -INFINITY;
+  for (int j = tid; j < T::BW; j += NT)
+    if (T::FULL || j < in.bw) {
+      lo = fminf(lo, L.tw[j]);
+      hi = fmaxf(hi, L.tw[j]);
+    }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) {
+    sm.red[warp] = lo;
+    sm.red[NT / 32 + warp] = hi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int v = 0; v < NT / 32; ++v) {
+    lo = fminf(lo, sm.red[v]);
+    hi = fmaxf(hi, sm.red[NT / 32 + v]);
+  }
+  bool may = false;
+  for (int i = tid; i < T::BQ; i += NT)
+    if (T::FULL || i < in.bq) {
+      const float t = L.tq[i], lam = L.lam[i], th = L.th[i];
+      const float d = t < lo ? __fsub_rn(lo, t) : t > hi ? __fsub_rn(t, hi) : 0.0f;
+      may |= !(lam >= 0.0f) || !(th > 0.0f) || expf(__fmul_rn(-lam, d)) >= th * 0.9999f;
+    }
+  return __syncthreads_or(may);
+}
+
+// The tile's time kill, second half (block-wide): every thread computes
+// the decays of its accumulator entries into sm.dec (0 outside the
+// runtime tile), which the bound checks and the scores read; returns
+// whether one reaches its row's theta, so the kill is exactly the plain
+// version's
+template <class T>
+__device__ __forceinline__ bool tile_decays_reach(const TileIn& in, Smem<T>& sm) {
+  const bool multi = in.sidq != nullptr;
+  bool alive = false;
+  float d[T::ACC];  // all in registers first: no store orders the lane loads
+#pragma unroll
+  for (int e = 0; e < T::ACC; ++e) {
+    const int i = erow<T>(e), j = ecol<T>(e);
+    d[e] = 0.0f;
+    if (inside<T>(in, i, j)) {
+      d[e] = decay_at(sm.L, i, j, multi);
+      alive |= d[e] >= sm.L.th[i];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < T::ACC; ++e) sm.dec[e * NT + threadIdx.x] = d[e];
+  return __syncthreads_or(alive);
+}
+
+// l2 suffix bound after chunk k over the thread's entries: whether one
+// inside the runtime tile may still reach theta
+template <class T>
+__device__ __forceinline__ bool chunk_alive(const TileIn& in, const Smem<T>& sm, int k,
+                                            const Acc<T>& acc) {
+  const float* na = sm.na[k % NSTAGE];
+  const float* nb = sm.nb[k % NSTAGE];
+  bool alive = false;
+#pragma unroll
+  for (int e = 0; e < T::ACC; ++e) {
+    const int i = erow<T>(e), j = ecol<T>(e);
+    if (!inside<T>(in, i, j)) continue;
+    const float ub = __fmul_rn(__fadd_rn(acc[e], __fmul_rn(na[i], nb[j])),
+                               sm.dec[e * NT + threadIdx.x]);
+    alive |= ub >= sm.L.th[i];
+  }
+  return alive;
+}
+
+// The sub-slabs of the tile's features: spc a chunk, total in all; vec:
+// every row start and chunk start 16-byte aligned
+struct Slabs {
+  int spc, total;
+  bool vec;
+};
+__device__ __forceinline__ Slabs slabs_of(const TileIn& in) {
+  const int spc = (in.chunk_d + KS - 1) / KS;
+  return {spc, in.n_chunks * spc,
+          ((in.d | in.chunk_d) & 3) == 0 && (((uintptr_t)in.q | (uintptr_t)in.w) & 15) == 0};
+}
+
+// Issue the loads of sub-slab s, if there is one, as one cp.async group
+// (empty past the end, which keeps the count), with a chunk's first
+// sub-slab also the suffix norms after that chunk
+template <class T>
+__device__ __forceinline__ void issue_slab(const TileIn& in, Smem<T>& sm, size_t q0,
+                                           size_t w0, const Slabs& sl, int s) {
+  if (s < sl.total) {
+    const int k = s / sl.spc, c = s - k * sl.spc;
+    load_slab<T>(in, sm.ring[s % NSTAGE], q0, in.bq, w0, in.bw, (size_t)k * in.chunk_d, c,
+                 sl.vec);
+    if (c == 0)
+      for (int r = threadIdx.x; r < T::BQ + T::BW; r += NT) {
+        const bool isq = r < T::BQ;
+        const int x = isq ? r : r - T::BQ;
+        const bool ok = T::FULL || x < (isq ? in.bq : in.bw);
+        const float* src = isq ? in.sqq + (q0 + x) * in.n_chunks : in.sqw + (w0 + x) * in.n_chunks;
+        cp_async4((isq ? sm.na[k % NSTAGE] : sm.nb[k % NSTAGE]) + x, ok ? src + k : in.sqq,
+                  ok ? 4 : 0);
+      }
+  }
+  cp_async_commit();
+}
+
+// The first NSTAGE - 1 sub-slabs of the tile, issued before its decays
+// are computed so their loads overlap that work; a caller that then finds
+// the tile dead waits for them (cp_async_wait<0>) before it returns
+template <class T>
+__device__ __forceinline__ void tile_prefetch(const TileIn& in, Smem<T>& sm, size_t q0,
+                                              size_t w0) {
+  const Slabs sl = slabs_of(in);
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) issue_slab<T>(in, sm, q0, w0, sl, s);
+}
+
+// The chunk loop of a live tile (blockIdx.y, blockIdx.x), after
+// tile_prefetch: acc = q . w^T one chunk_d slab at a time, until the
+// bound check kills the tile or the chunks run out; returns the chunks
+// run (>= 1).  Sub-slabs stream through the ring NSTAGE - 1 ahead of the
+// tensor cores, across chunk ends too (a tile that dies leaves at most
+// that many loads unused), and each is split while the one before it is
+// on the tensor cores.  The tensor cores' f32 accumulation truncates (see
+// the header), so the products of at most FLUSH sub-slabs, and never more
+// than one chunk, are summed from zero in p and added to acc with IEEE
+// adds.  Every thread must call it, and the ring is free again on return.
+template <class T>
+__device__ __forceinline__ int tile_dot(const TileIn& in, Smem<T>& sm, size_t q0,
+                                        size_t w0, Acc<T>& acc) {
+  const Slabs sl = slabs_of(in);
+  Acc<T> p;
+#pragma unroll
+  for (int e = 0; e < T::ACC; ++e) acc[e] = p[e] = 0.0f;
+  cp_async_wait<NSTAGE - 2>();  // sub-slab 0 landed
+  __syncthreads();
+  split_slab<T>(sm.ring[0], sm.wlo[0]);
+  __syncthreads();
+  int k = 0, s = 0;
+  bool live = true;
+  while (live && k < in.n_chunks) {
+    for (int c = 0; c < sl.spc; ++c, ++s) {
+      slab_products<T>(sm.ring[s % NSTAGE], sm.wlo[s & 1], p, c % FLUSH != 0, [&] {
+        // sub-slab s + NSTAGE - 1 into the slot of s - 1, whose products
+        // are done; then s + 1, landed, split for the next products
+        issue_slab<T>(in, sm, q0, w0, sl, s + NSTAGE - 1);
+        cp_async_wait<NSTAGE - 2>();
+        __syncthreads();
+        if (s + 1 < sl.total) split_slab<T>(sm.ring[(s + 1) % NSTAGE], sm.wlo[(s + 1) & 1]);
+      });
+      if (c % FLUSH == FLUSH - 1 || c == sl.spc - 1) {
+#pragma unroll
+        for (int e = 0; e < T::ACC; ++e) acc[e] = __fadd_rn(acc[e], p[e]);
+      }
+      if (c < sl.spc - 1) __syncthreads();  // the split of s + 1 is everyone's
+    }
+    live = __syncthreads_or(chunk_alive<T>(in, sm, k, acc));  // (and published)
+    ++k;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
   return k;
+}
+
+// Each score acc * decay into the row-major (BQ, LDS) matrix S where it
+// emits (score >= theta_row, and score > 0 if POS) and 0 elsewhere; spare
+// rows (theta +inf) and columns (decay 0) get 0.  S must be free; the
+// caller syncs before reading it.
+template <class T, bool POS>
+__device__ __forceinline__ void scores_to_smem(const Smem<T>& sm, const Acc<T>& acc,
+                                               float* S) {
+  float v[T::ACC];  // all read before the first store, which could alias them
+  const float th[2] = {sm.L.th[erow<T>(0) % T::BQ], sm.L.th[erow<T>(2) % T::BQ]};
+#pragma unroll
+  for (int e = 0; e < T::ACC; ++e) {
+    const float sc = __fmul_rn(acc[e], sm.dec[e * NT + threadIdx.x]);
+    v[e] = sc >= th[(e >> 1) & 1] && (!POS || sc > 0.0f) ? sc : 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < T::ACC; e += 2) {
+    const int i = erow<T>(e), j = ecol<T>(e);
+    if (T::BQ >= 64 || i < T::BQ)
+      *reinterpret_cast<float2*>(S + i * T::LDS + j) = make_float2(v[e], v[e + 1]);
+  }
 }
 
 // Sub-tile (sq, sw) of a big tile: its first query and window rows, and
@@ -393,6 +898,20 @@ __device__ int big_tile_scores(const TileIn& in, Lanes<T::BQ, T::BW>& L, float* 
     live = __syncthreads_or(alive_k);
   }
   return k;
+}
+
+// Let kernel take bytes of dynamic shared memory (above 48 KB it must be
+// asked for), with the SM's unified memory split toward shared memory so
+// two blocks fit; returns the CUDA error
+template <class K>
+__host__ inline int allow_smem(K* kernel, size_t bytes) {
+  cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute((const void*)kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return (int)e;
 }
 
 // The launchers' shape check: tile edges of at least 1, whole tiles,

@@ -165,6 +165,94 @@ def test_kernel_tile_edge_range():
             tkernel.kernel_tile_edge(e)
 
 
+# The CUDA tile joins form each f32 dot product on the tensor cores as
+# 3xTF32: x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and
+# lo.hi + hi.lo + hi.hi, each 128-feature block summed from zero and added
+# to an f32 accumulator.  The kernels run only on the card; these tests
+# emulate that arithmetic on the CPU and hold the accuracy it rests on.
+TF32_MASK = -0x2000  # an int32 with the low 13 bits clear
+
+
+def _tf32_rna(x):
+    """f32 ``x`` as TF32, rounded to nearest with ties away from zero as
+    ``cvt.rna.tf32.f32`` rounds it: on the int32 view, add half a unit of
+    the 10th mantissa bit and clear the 13 bits below it."""
+    bits = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).view(torch.int32)
+    return ((bits + 0x1000) & TF32_MASK).view(torch.float32).numpy()
+
+
+def _split_dot(a, b, block=128):
+    """``a @ b.T`` as the kernels form it: the three TF32 products of each
+    ``block`` features summed exactly and rounded once to f32, the blocks
+    added into an f32 accumulator."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for c0 in range(0, a.shape[1], block):
+        cols = slice(c0, c0 + block)
+        x = [m[:, cols].astype(np.float64) for m in (ah, al, bh, bl)]
+        part = x[1] @ x[2].T + x[0] @ x[3].T + x[0] @ x[2].T
+        acc = (acc + part.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def test_tf32_rounding_matches_cvt_rna():
+    """Ties go away from zero, a subnormal with 10 bits or fewer stays,
+    the 13 low bits end clear, and hi + lo holds x to 2^-21 of its size."""
+    x = np.array([1 + 2.0**-11, -(1 + 2.0**-11), 1 + 2.0**-11 - 2.0**-23,
+                  1 + 3 * 2.0**-12, 0.0, 2.0**-130], np.float32)
+    hi = _tf32_rna(x)
+    np.testing.assert_array_equal(
+        hi, np.array([1 + 2.0**-10, -(1 + 2.0**-10), 1.0, 1 + 2.0**-10, 0.0, 2.0**-130],
+                     np.float32))
+    rng = np.random.default_rng(19)
+    v = rng.standard_normal(4096).astype(np.float32)
+    hi = _tf32_rna(v)
+    lo = _tf32_rna(v - hi)
+    for part in (hi, lo):
+        assert not (part.view(np.int32) & 0x1FFF).any()
+    assert (np.abs(hi.astype(np.float64) + lo - v) <= 2.0**-21 * np.abs(v)).all()
+
+
+def test_3xtf32_dot_keeps_f32_accuracy():
+    """Seeded unit vectors at d = 1024, a quarter of the pairs near-
+    duplicates: the split dot stays within 2e-6 of the f64 dot."""
+    rng = np.random.default_rng(1024)
+    a = _unit(rng, 64, 1024)
+    b = _unit(rng, 256, 1024)
+    b[:16] = a[:16] + 0.002 * rng.standard_normal((16, 1024)).astype(np.float32)
+    b /= np.linalg.norm(b, axis=1, keepdims=True)
+    exact = a.astype(np.float64) @ b.astype(np.float64).T
+    err = np.abs(_split_dot(a, b) - exact).max()
+    assert err <= 2e-6
+    assert exact.max() > 0.99   # the near-duplicates reach scores near 1
+
+
+def test_3xtf32_scores_give_the_plain_hits():
+    """A seeded 128 x 512 join at d = 1024 with near-duplicates: the
+    emulated scores, decayed as the plain version decays them, hit at
+    θ 0.9 exactly where ``cand_tiles_plain`` emits."""
+    rng = np.random.default_rng(1919)
+    q, w, tq, tw, uq, uw = _stream(rng, 128, 512, 1024, 40, noise=0.002)
+    theta, lam, blk = 0.9, 0.01, 128
+    args = [q, w, tq[:, None], tw[:, None], uq[:, None], uw[:, None],
+            _suffix(q, blk), _suffix(w, blk)]
+    cand_idx, _, emitted, _, _ = tkernel.cand_tiles_plain(
+        *map(torch.from_numpy, args), theta=theta, lam=lam, block_q=blk,
+        block_w=blk, chunk_d=blk, tile_k=blk * blk)
+    plain = set()
+    for tj in range(512 // blk):
+        for f in cand_idx[0, tj][: int(emitted[0, tj])].tolist():
+            plain.add((f // blk, tj * blk + f % blk))
+    tq_t, tw_t = torch.from_numpy(tq), torch.from_numpy(tw)
+    decay = torch.exp(-lam * (tq_t[:, None] - tw_t[None, :]).abs())
+    order = torch.from_numpy(uq)[:, None] > torch.from_numpy(uw)[None, :]
+    score = torch.from_numpy(_split_dot(q, w)) * torch.where(order, decay, 0.0)
+    hits = torch.nonzero((score >= theta) & (score > 0)).tolist()
+    assert len(plain) >= 20
+    assert {tuple(h) for h in hits} == plain
+
+
 def test_tile_join_multi_tenant_lanes():
     """Stream ids and per-row (θ, λ), the lanes the kernel signature
     carries for the multi-tenant runtime."""
