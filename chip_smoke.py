@@ -4,13 +4,18 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero before
-the result line:
+the result line (the engine runs of phases 2-4 come before phase 2's
+kernel timings, see ``main``):
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    kernels built from ``src/repro_torch/kernels/csrc`` by ``nvcc``;
 2. every kernel against its plain PyTorch version, on the card, at the
    shapes its path gives it (integers exact, floats within ``FLOAT_TOL``
-   outside a ``BAND`` around θ, which is reported), with CUDA-event times;
+   outside a ``BAND`` around θ, which is reported), each timed twice:
+   through its wrapper with CUDA events (``ms``, what a caller pays) and
+   on the device alone (``device_ms``, see :func:`device_ms`), its plain
+   version too (``plain_ms``, ``plain_device_ms``); the gate bound also
+   with the chunk norms scaled up so that its prefix product decides;
    the tile joins also with every tile dead and with every tile live;
    the join and gate kernels again at the tile edges (64, 64), (32, 128),
    (128, 48), (256, 256) and (192, 320), and the engine at the consumers'
@@ -28,9 +33,12 @@ the result line:
    padded head dim, head dims above 256 (run in column slices) and a
    non-causal case, each output held against
    ``flash_attention_plain`` on the card, timed beside
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
-6. the ``kernels`` line: launches, error, times and bound of each kernel,
-   the launches counted over the run of its own path;
+   ``scaled_dot_product_attention`` (a yardstick the port never calls),
+   with the kernel route each head dim takes;
+6. the ``kernels`` line: launches, error, times (``ms`` and
+   ``device_ms``, the plain version's and the library call's beside) and
+   bound of each kernel, the launches counted over the run of its own
+   path;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of the JAX package, and exits non-zero without a result
@@ -88,6 +96,10 @@ def emit(obj) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """What a caller pays for one call of ``fn``: CUDA events around
+    ``reps`` back-to-back calls.  When the device work of a call is
+    shorter than the host time its wrapper takes, this is the host's
+    launch pace, not the device's time (see :func:`device_ms`)."""
     import torch
 
     for _ in range(warmup):
@@ -99,6 +111,81 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+TRIES = 5   # device_ms's measurements before it gives up
+
+
+def device_ms(fn, reps: int, kernel: str | None = None, warmup: int = 2,
+              parts: dict | None = None) -> float:
+    """The device's own time for one call of ``fn``, host excluded: the
+    durations of the device work that ``reps`` calls launch (kernels,
+    copies, fills), summed from ``torch.profiler``'s CUDA trace, over
+    ``reps``.  With ``kernel``, the kernels whose names hold that text,
+    each launched once a call: the sum of their mean durations (each one's
+    mean also into ``parts``, by name, when given).
+
+    Method: the profiler's CUPTI trace stamps each kernel's start and end
+    on the device, so neither the wrapper's host time nor the gaps it
+    leaves between launches count.  Occupying the stream first
+    (``torch.cuda._sleep``) so that the host enqueues every rep before the
+    device starts would also exclude the host, but not for a function
+    that waits on the device: the plain tile joins read a flag back each
+    chunk (``bool(running.any())``).  The warmup calls run in the
+    profiler's warmup step, and the recorded step starts and ends with a
+    pause.  The trace can still miss launches (on an H100, 4 to 6 of 20
+    back-to-back flash launches in every try, and once all 20 of a
+    0.03 ms kernel), so a named kernel's time is the mean over the
+    launches the trace holds, and a kernel recorded fewer than ``reps /
+    2`` times is measured again, up to ``TRIES`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(max(1, warmup)):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()   # the warmup step ends: the recorded one starts
+            time.sleep(0.05)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        # the device's own work: not the step's annotation, which spans it
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e) > 0
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("ProfilerStep")
+                  and (kernel is None or kernel in e.key)]
+        if events and kernel is None:
+            return sum(_dev_us(e) for e in events) / 1e3 / reps
+        if events and all(2 * e.count >= reps for e in events):
+            means = {e.key: _dev_us(e) / e.count / 1e3 for e in events}
+            if parts is not None:
+                parts.update(means)
+            return sum(means.values())
+    raise AssertionError(f"device_ms: {[(e.key[:60], e.count) for e in events]} "
+                         f"device events for {reps} calls, {TRIES} times")
+
+
+# a kernel's times in the ``kernels`` line: through its wrapper (``ms``,
+# what a caller pays) and on the device alone (``device_ms``), and its
+# plain version's
+TIMES = ("ms", "device_ms", "plain_ms", "plain_device_ms")
+
+
+def _by_kernel(parts: dict) -> dict:
+    """``device_ms``'s parts by bare kernel name (``"void (anonymous
+    namespace)::x3::flash_tf32_kernel<128>(float const*, ..."`` →
+    ``"flash_tf32_kernel"``)."""
+    return {re.search(r"::(\w+)[<(]", k).group(1): v for k, v in parts.items()}
+
+
+def _dev_us(e) -> float:
+    """A profiler event's own device time in µs (0 for a host event)."""
+    return getattr(e, "self_device_time_total", 0) or 0
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
@@ -145,13 +232,17 @@ def phase_device() -> dict:
     # the bf16 flash kernel at head dim 128 (the models' own), whole q . k^T,
     # and the tile joins' FULL 128 x 128 instances (the main path's)
     flash_bf16 = _ptxas(ptxas.get("flash_attn", []), "flash_bf16_kernelILi128ELb0E")
+    flash_tf32 = {dh: _ptxas(ptxas.get("flash_attn", []), f"flash_tf32_kernelILi{dh}E")
+                  for dh in (32, 64, 128)}
+    gate = _ptxas(ptxas.get("gate_ub", []), "gate_ub_products")
     full128 = "_kernelIN4sssj4TileILi128ELi128ELb1EEE"
     joins = {name: _ptxas(ptxas.get(name, []), entry + full128)
              for name, entry in (("sssj_cand", "cand"), ("sssj_dense", "dense"))}
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.monotonic() - t0, "ptxas": ptxas})
-    return {"smi": smi, "ptxas_flash_bf16": flash_bf16, "ptxas_joins": joins}
+    return {"smi": smi, "ptxas_flash_bf16": flash_bf16, "ptxas_flash_tf32": flash_tf32,
+            "ptxas_joins": joins, "ptxas_gate": gate}
 
 
 # --------------------------------------------------------------------- #
@@ -262,7 +353,10 @@ def phase_kernels(dev) -> dict:
                "live_tiles": int((k_out[4] > 0).sum())}
         if reps:
             rec["ms"] = cuda_ms(lambda: cand(*args, **ckw), reps)
+            rec["device_ms"] = device_ms(lambda: cand(*args, **ckw), reps, "::cand_")
             rec["plain_ms"] = cuda_ms(lambda: cand_tiles_plain(*args, **ckw), 3, 1)
+            rec["plain_device_ms"] = device_ms(lambda: cand_tiles_plain(*args, **ckw), 3,
+                                               warmup=1)
         cases[label] = rec
         return rec
 
@@ -336,10 +430,21 @@ def phase_kernels(dev) -> dict:
     ub_err = max(ub_err, float((gate_mod.gate_ub(qa2, qcn2, vmax, cnorm, block_q=blk)
                                 - gate_mod.gate_ub_plain(qa2, qcn2, vmax, cnorm, block_q=blk)
                                 ).abs().max()))
+    # on this isotropic window the chunk-l2 bound is the smaller one, so the
+    # prefix product decides no entry: the same with cnorm scaled up
+    # until the prefix bound decides every one
+    ub_prefix = _gate_prefix_err(gate_mod, qa, qcn, vmax, cnorm, blk)
+    ub_err = max(ub_err, ub_prefix)
     if not ub_err <= FLOAT_TOL:
         raise AssertionError(f"gate bound max error {ub_err} > {FLOAT_TOL}")
-    g_ms = cuda_ms(lambda: gate_mod.gate_ub(qa, qcn, vmax, cnorm, block_q=blk), 50)
-    g_plain = cuda_ms(lambda: gate_mod.gate_ub_plain(qa, qcn, vmax, cnorm, block_q=blk), 20)
+    g_call = lambda: gate_mod.gate_ub(qa, qcn, vmax, cnorm, block_q=blk)  # noqa: E731
+    g_plain_call = lambda: gate_mod.gate_ub_plain(qa, qcn, vmax, cnorm, block_q=blk)  # noqa: E731
+    g_parts: dict = {}
+    g_times = {"ms": cuda_ms(g_call, 50),
+               "device_ms": device_ms(g_call, 50, "::gate_ub", parts=g_parts),
+               "plain_ms": cuda_ms(g_plain_call, 20),
+               "plain_device_ms": device_ms(g_plain_call, 20)}
+    g_times["device_ms_by_kernel"] = _by_kernel(g_parts)
 
     # the dense-emission tile join: the window and self joins of the
     # emit_dense path, and ragged d with two query tiles
@@ -353,7 +458,10 @@ def phase_kernels(dev) -> dict:
         rec = _compare_dense(label, k_out, p_out, ckw["theta"])
         if reps:
             rec["ms"] = cuda_ms(lambda: dense(*args, **ckw), reps)
+            rec["device_ms"] = device_ms(lambda: dense(*args, **ckw), reps, "::dense_")
             rec["plain_ms"] = cuda_ms(lambda: dense_tiles_plain(*args, **ckw), 3, 1)
+            rec["plain_device_ms"] = device_ms(lambda: dense_tiles_plain(*args, **ckw), 3,
+                                               warmup=1)
         dense_cases[label] = rec
         return rec
 
@@ -394,20 +502,38 @@ def phase_kernels(dev) -> dict:
     g_flops = 2 * MICRO * ns * (D + nc)
     g_bound, g_by = bound_ms(g_bytes, g_flops)
     emit({"phase": "kernels", "gate_stats": gate_stats.tolist(), "cases": cases,
-          "gate_ub": {"max_abs_err": ub_err, "ms": g_ms, "plain_ms": g_plain},
+          "gate_ub": {"max_abs_err": ub_err, "prefix_decides_max_abs_err": ub_prefix,
+                      **g_times},
           "dense_cases": dense_cases, "tile_edges": edges})
     return {
         "sssj_cand": {"max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-                      "ms": gated["ms"], "plain_ms": gated["plain_ms"], **j_bounds,
+                      **{k: gated[k] for k in TIMES}, **j_bounds,
                       "ms_all_dead": dead["ms"], "ms_all_live": live["ms"],
+                      "device_ms_all_dead": dead["device_ms"],
+                      "device_ms_all_live": live["device_ms"],
                       "all_live": join_bounds(live["chunks_run"], False)},
-        "gate_ub": {"max_abs_err": ub_err, "ms": g_ms, "plain_ms": g_plain,
-                    "bound_ms": g_bound, "bound_by": g_by},
+        "gate_ub": {"max_abs_err": ub_err, **g_times, "bound_ms": g_bound, "bound_by": g_by,
+                    "bound_3xtf32_ms": bound_ms(g_bytes, 3 * g_flops, PEAK_TF32_FLOPS)[0]},
         "sssj_dense": {"max_abs_err": max(c["max_abs_err"] for c in dense_cases.values()),
-                       "ms": d_win["ms"], "plain_ms": d_win["plain_ms"], **d_bounds,
+                       **{k: d_win[k] for k in TIMES}, **d_bounds,
                        "ms_all_dead": d_dead["ms"], "ms_all_live": d_live["ms"],
+                       "device_ms_all_dead": d_dead["device_ms"],
+                       "device_ms_all_live": d_live["device_ms"],
                        "all_live": join_bounds(d_live["chunks_run"], True)},
     }
+
+
+def _gate_prefix_err(gate_mod, qa, qcn, vmax, cnorm, block_q) -> float:
+    """The gate kernel's max error against its plain version with the
+    chunk norms scaled up by 1e3, so that the prefix product |q| . vmax is
+    the smaller bound, and so the result, everywhere."""
+    big = cnorm * 1e3
+    ub_k = gate_mod.gate_ub(qa, qcn, vmax, big, block_q=block_q)
+    ub_p = gate_mod.gate_ub_plain(qa, qcn, vmax, big, block_q=block_q)
+    lb = (qcn @ big.T).reshape(-1, block_q, big.shape[0]).amin(1)
+    if not bool(((ub_p < lb) | (lb == 0)).all()):   # (an empty strip bounds 0 both ways)
+        raise AssertionError("gate check: the scaled chunk bound still decides an entry")
+    return float((ub_k - ub_p).abs().max())
 
 
 def _tile_edge_checks(dev, gen) -> dict:
@@ -456,7 +582,8 @@ def _tile_edge_checks(dev, gen) -> dict:
         o_kw = dict(kw, tile_k=64)
         o_k, o_p = cand(*o_args, **o_kw), cand_tiles_plain(*o_args, **o_kw)
         sync(dev)
-        ub_err = float((ub_k - ub_p).abs().max())
+        ub_err = max(float((ub_k - ub_p).abs().max()),
+                     _gate_prefix_err(gate_mod, qa, qcn, summary.vmax, summary.cnorm, bq))
         if not ub_err <= FLOAT_TOL:
             raise AssertionError(f"gate bound at {label}: max error {ub_err}")
         rec = {"compiled_tile": [kernel_tile_edge(bq), kernel_tile_edge(bw)],
@@ -550,19 +677,16 @@ def _profile(push_all, dev):
         sync(dev)
         wall_ms = 1e3 * (time.monotonic() - t0)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0) or 0
-
     # device-side events only: an aten op's entry repeats its kernels' time
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+               if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e) > 0]
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_dev_us, reverse=True)[:10]
     return out, {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms if wall_ms else None,
         "device_launches": sum(e.count for e in kernels),
-        "top": [{"name": e.key[:90], "ms": dev_us(e) / 1e3, "calls": e.count}
+        "top": [{"name": e.key[:90], "ms": _dev_us(e) / 1e3, "calls": e.count}
                 for e in top],
     }
 
@@ -726,9 +850,9 @@ def phase_dense_path(dev, requests, main_runs, smi) -> dict:
 # (src/repro/configs/qwen3_0_6b.py: 16 heads, 8 kv heads, head_dim 128) at
 # a 4096-token prefill and of qwen2.5-3b (qwen2_5_3b.py: 16 heads, 2 kv
 # heads, 2048 / 16 = 128) at 2048; a ragged S, head dims the kernel pads
-# (80 -> 128, 200 -> 256) and every compiled bf16 one, head dims above 256
-# (320 -> 384 in three column slices of 128, 512 in four), and a
-# non-causal aligned case
+# (80 -> 128, 200 -> 256) and every compiled width in f32 and in bf16,
+# head dims above 256 (320 -> 384 in three column slices of 128, 512 in
+# four), and a non-causal aligned case
 FLASH_CASES = (
     ("qwen3-0.6b f32", 1, 16, 8, 4096, 128, True, "float32"),
     ("qwen3-0.6b bf16", 1, 16, 8, 4096, 128, True, "bfloat16"),
@@ -737,6 +861,9 @@ FLASH_CASES = (
     ("ragged S 1000 f32", 1, 16, 8, 1000, 128, True, "float32"),
     ("ragged S 1000 bf16", 1, 16, 8, 1000, 128, True, "bfloat16"),
     ("head dim 80 f32", 1, 16, 8, 1024, 80, True, "float32"),
+    ("head dim 32 f32", 1, 16, 8, 1024, 32, True, "float32"),
+    ("head dim 64 f32", 1, 16, 8, 1024, 64, True, "float32"),
+    ("head dim 200 f32", 1, 16, 8, 1024, 200, True, "float32"),
     ("head dim 32 bf16", 1, 16, 8, 1024, 32, True, "bfloat16"),
     ("head dim 64 bf16", 1, 16, 8, 1024, 64, True, "bfloat16"),
     ("head dim 200 bf16", 1, 16, 8, 1024, 200, True, "bfloat16"),
@@ -747,6 +874,7 @@ FLASH_CASES = (
 )
 FLASH_TIMED = ("qwen3-0.6b f32", "qwen3-0.6b bf16", "qwen2.5-3b f32", "qwen2.5-3b bf16")
 FLASH_F32_TOL = 2e-5   # f32 sums in another order, at S 4096
+FLASH_TIMES = TIMES + ("bound_ms", "bound_by", "library_ms", "library_device_ms")
 
 
 def _bf16_ulp(x):
@@ -790,6 +918,7 @@ def phase_flash(dev, smi) -> dict:
         KERNEL_HEAD_DIMS,
         SLICE,
         kernel_head_dim,
+        kernel_route,
     )
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -819,7 +948,10 @@ def phase_flash(dev, smi) -> dict:
         if out.shape != q.shape or out.dtype != q.dtype or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"flash {label}: output {tuple(out.shape)} {out.dtype}")
         err = (out.float() - plain.float()).abs()
-        rec = {"max_abs_err": float(err.max())}
+        width = kernel_head_dim(Dh)
+        rec = {"max_abs_err": float(err.max()),
+               "route": kernel_route(q.dtype, width,
+                                     width if width in KERNEL_HEAD_DIMS else SLICE)}
         if dtype == "float32":
             if not rec["max_abs_err"] <= FLASH_F32_TOL:
                 raise AssertionError(f"flash {label}: max error {rec['max_abs_err']}")
@@ -838,15 +970,23 @@ def phase_flash(dev, smi) -> dict:
         q, k, v = inputs[label]
         kw = dict(sm_scale=Dh ** -0.5, causal=causal, block_q=128, block_k=128)
         rec = cases[label]
-        rec["ms"] = cuda_ms(lambda: flash_attention_kernel_call(q, k, v, **kw), 20)
-        rec["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 5, 1)
-        rec["library_ms"] = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, scale=Dh ** -0.5, enable_gqa=True), 20)
+        kern_call = lambda: flash_attention_kernel_call(q, k, v, **kw)  # noqa: E731
+        plain_call = lambda: flash_attention_plain(q, k, v, **kw)  # noqa: E731
+        lib_call = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, scale=Dh ** -0.5, enable_gqa=True)
+        parts: dict = {}
+        rec.update(ms=cuda_ms(kern_call, 20),
+                   device_ms=device_ms(kern_call, 20, "::flash_", parts=parts),
+                   plain_ms=cuda_ms(plain_call, 5, 1),
+                   plain_device_ms=device_ms(plain_call, 5, warmup=1),
+                   library_ms=cuda_ms(lib_call, 20), library_device_ms=device_ms(lib_call, 20))
         flops = (2 if causal else 4) * B * H * S * S * Dh
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+        rec["device_ms_by_kernel"] = _by_kernel(parts)
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, peak)
+        if rec["route"] == "f32_3xtf32":   # the same work as three TF32 products
+            rec["bound_3xtf32_ms"] = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)[0]
         rec["gflop"] = flops / 1e9
     emit({"phase": "flash", "nvidia_smi": smi, "launches": launches, "cases": cases})
     qwen = cases["qwen3-0.6b f32"]
@@ -855,11 +995,12 @@ def phase_flash(dev, smi) -> dict:
         "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for label, c in cases.items()
                            if label.endswith("f32")),
-        **{key: qwen[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")},
-        **{f"{key}_bf16": qwen_bf16[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                     "bound_by", "library_ms")},
+        **{key: qwen[key] for key in FLASH_TIMES + ("route", "bound_3xtf32_ms",
+                                                    "device_ms_by_kernel")},
+        **{f"{key}_bf16": qwen_bf16[key] for key in FLASH_TIMES},
         "max_err_in_ulps_bf16": max(c.get("max_err_in_ulps", 0.0) for c in cases.values()),
+        "f32_route_by_head_dim": {str(case[5]): cases[case[0]]["route"]
+                                  for case in FLASH_CASES if case[7] == "float32"},
     }
 
 
@@ -886,11 +1027,14 @@ def main() -> int:
         device = phase_device()
         smi = device["smi"]
         dev = torch.device("cuda")
-        kern = phase_kernels(dev)
+        # the engine runs before the kernels' device timings: once
+        # torch.profiler has traced, every later launch costs the host
+        # more, and the engine's items/s is paced by its host loop
         phase_tile_edge_engine(dev)
         launches, requests, main_runs = phase_main_path(dev)
         launches["sssj_dense"] = phase_dense_path(
             dev, requests, main_runs, smi)["sssj_dense"]
+        kern = phase_kernels(dev)
         flash = phase_flash(dev, smi)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": "failed", "error": f"{type(exc).__name__}: {exc}"})
@@ -911,11 +1055,13 @@ def main() -> int:
                    **kern[row["name"]])
         if row["name"] in device["ptxas_joins"]:
             row["ptxas_full_128"] = device["ptxas_joins"][row["name"]]
+    rows[1]["ptxas"] = device["ptxas_gate"]
     # flash attention: the f32 qwen3-0.6b case's numbers, the bf16 ones beside
     rows.append({"name": "flash_attn", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
                  "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
-                 **flash, "ptxas_bf16": device["ptxas_flash_bf16"]})
+                 **flash, "ptxas_bf16": device["ptxas_flash_bf16"],
+                 "ptxas_f32_3xtf32": device["ptxas_flash_tf32"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

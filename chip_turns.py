@@ -6,17 +6,22 @@
 Runs A, B, B, A, each in a process of its own (``--worker ROOT``) that
 imports ``ROOT/src/repro_torch`` (whose kernels build into ``ROOT/build``),
 makes the same seeded inputs with ``chip_smoke.py``'s generators, and
-times each wrapper with CUDA events (``chip_smoke.cuda_ms``):
+times each call twice: through its wrapper with CUDA events
+(``chip_smoke.cuda_ms``, what a caller pays, key ``NAME``) and on the
+device alone from the profiler's trace (``chip_smoke.device_ms``, the
+kernel's own time, key ``NAME device``), so that a kernel shorter than
+its wrapper's host time is still judged on the device:
 
 * the tile joins and the gate bound at the main path's shapes (one query
   tile of 128 rows against a window of 262,144 x 1024, 128 x 128 tiles,
   chunk 128): ``sssj_cand`` on the gated window, on the self join and
   with every tile live (``chip_smoke.py``'s all-live case), ``sssj_dense``
-  on the window and all live, ``gate_ub``; then the same at 256 x 256
-  tiles (256 queries, ``tile_k`` 65,536), recorded as the error's text in
-  a checkout whose wrappers refuse that edge;
+  on the window and all live, ``gate_ub`` and ``gate_ub_plain``; then the
+  same at 256 x 256 tiles (256 queries, ``tile_k`` 65,536), recorded as
+  the error's text in a checkout whose wrappers refuse that edge;
 * flash attention in f32 and bf16 at qwen3-0.6b's heads (B 1, H 16,
-  Hkv 8, S 4096, Dh 128) and qwen2.5-3b's (H 16, Hkv 2, S 2048), causal.
+  Hkv 8, S 4096, Dh 128), qwen2.5-3b's (H 16, Hkv 2, S 2048) and
+  qwen3-0.6b's at Dh 64 and 32, causal.
 
 Prints the card's name and power limit, one JSON line per run, and a
 summary line with each time's mean in A and in B and their ratio B / A;
@@ -33,7 +38,14 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-FLASH = (("qwen3-0.6b", 1, 16, 8, 4096, 128), ("qwen2.5-3b", 1, 16, 2, 2048, 128))
+# (label, B, H, Hkv, S, Dh): the models' heads, and qwen3-0.6b's at the
+# other head dims f32 runs on the tensor cores
+FLASH = (("qwen3-0.6b", 1, 16, 8, 4096, 128), ("qwen2.5-3b", 1, 16, 2, 2048, 128),
+         ("qwen3-0.6b Dh 64", 1, 16, 8, 4096, 64), ("qwen3-0.6b Dh 32", 1, 16, 8, 4096, 32))
+# the kernel whose own device time stands for each timed call (the plain
+# version's is all the device work it launches)
+KERNEL_OF = {"cand_gated": "::cand_", "cand_all_live": "::cand_", "cand_self": "::cand_",
+             "dense": "::dense_", "dense_all_live": "::dense_", "gate_ub": "::gate_ub"}
 
 
 def _join_times(dev, edge: int, reps: int) -> dict:
@@ -73,8 +85,14 @@ def _join_times(dev, edge: int, reps: int) -> dict:
         "dense_all_live": lambda: dense(*live, **kw),
         "gate_ub": lambda: gate_mod.gate_ub(qa, qcn, summary.vmax, summary.cnorm,
                                             block_q=edge),
+        "gate_ub_plain": lambda: gate_mod.gate_ub_plain(qa, qcn, summary.vmax,
+                                                        summary.cnorm, block_q=edge),
     }
-    return {f"{name}_{edge}": cs.cuda_ms(fn, reps) for name, fn in calls.items()}
+    out = {}
+    for name, fn in calls.items():
+        out[f"{name}_{edge}"] = cs.cuda_ms(fn, reps)
+        out[f"{name}_{edge} device"] = cs.device_ms(fn, reps, KERNEL_OF.get(name))
+    return out
 
 
 def _flash_times(dev, reps: int) -> dict:
@@ -89,8 +107,9 @@ def _flash_times(dev, reps: int) -> dict:
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
                        for shape in ((B, H, S, Dh), (B, Hkv, S, Dh), (B, Hkv, S, Dh)))
             kw = dict(sm_scale=Dh ** -0.5, causal=True, block_q=128, block_k=128)
-            out[f"flash {label} {dtype}"] = cs.cuda_ms(
-                lambda: flash_attention_kernel_call(q, k, v, **kw), reps)
+            call = lambda: flash_attention_kernel_call(q, k, v, **kw)  # noqa: E731
+            out[f"flash {label} {dtype}"] = cs.cuda_ms(call, reps)
+            out[f"flash {label} {dtype} device"] = cs.device_ms(call, reps, "::flash_")
     return out
 
 

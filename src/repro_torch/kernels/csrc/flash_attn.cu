@@ -19,28 +19,69 @@
 // innermost grid axis) and carries m, l and acc in registers.
 //
 // Head dims.  Each kernel is compiled for the width DH of v and the output
-// (32, 64, 128, 256), with q and k of the same width (Dqk == DH) staged
+// (bf16: 32, 64, 128, 256; f32: 32, 64, 128 on the tensor cores, 256 on
+// the CUDA cores), with q and k of the same width (Dqk == DH) staged
 // whole.  A larger head dim runs as column slices of the output, one launch
 // each (the wrapper slices v and out, 128 columns a launch): the SLABS
-// instances take q and k of any width Dqk that is a multiple of DH and
-// form q . k^T over Dqk one DH-wide slab at a time, so each launch
-// recomputes the same s, the same softmax statistics, and its own
-// columns of p . v.
+// instances (bf16, and f32 on the CUDA cores) take q and k of any width
+// Dqk that is a multiple of DH and form q . k^T over Dqk one DH-wide slab
+// at a time, so each launch recomputes the same s, the same softmax
+// statistics, and its own columns of p . v.
 //
 // What bounds it on an H100: the multiply-adds of q.k^T and p.v, 2 * B * H
 // * Sq * Sk * Dh FLOP over the causal half (68.7 GFLOP at B 1, H 16,
 // S 4096, Dh 128).  The bytes of q, k, v and o (50 MB in bf16, 0.015 ms at
-// 3.35 TB/s) are below that.
+// 3.35 TB/s) are below that.  Three kernels, picked by the route the
+// wrapper passes (kernel.py's kernel_route):
 //
-// f32 (flash_f32_kernel): the 67 TFLOP/s of the CUDA cores (1.03 ms at the
-// shape above); the products must stay IEEE f32, so no tensor core.
-// 256 threads each own 4 query rows x 4 kv columns of s and 4 rows x Dh/16
-// columns of acc in registers, so every shared-memory float4 feeds 4 (s)
-// or 4-16 (acc) FMAs; the q tile, the k tile and the v tile live in
-// dynamic shared memory with a 4-float row pad (conflict-free float4
-// reads), and p^T reuses the k tile's space, so Dh 128 takes 99 KB and two
-// blocks fit on an SM.  q is scaled as it is staged, as the TPU kernel
-// scales it before the product.
+// f32 at head dims 32, 64 and 128 (flash_tf32_kernel): each product as
+// 3xTF32 on the tensor cores (wgmma_tf32.cuh), three TF32 products per
+// multiply-add: 0.416 ms at 495 TFLOP/s at the shape above, against 1.026
+// ms for the same work in f32 FMAs on the CUDA cores at 67 TFLOP/s (the
+// H100's published peaks).  Two warpgroups own 64 query rows each and
+// share kv tiles of BN = 64:
+//   s = q . k^T    wgmma m64n64k8, A = q from registers (split as each
+//                  thread loads its fragments from the staged, scaled q
+//                  tile, one atom of 32 columns while the last is on the
+//                  tensor cores), B = the k tile's hi and lo parts;
+//   pv = p . v     wgmma m64nDHk8, A = p from registers, B = v^T's hi and
+//                  lo parts.  .tf32 takes both operands K-major only, so v
+//                  is used transposed; a thread's accumulator holds
+//                  columns 2 t, 2 t + 1 of each 8 where the A fragment
+//                  wants t, t + 4, so v's kv rows are permuted the same
+//                  way within each 8, and p goes to the tensor cores as it
+//                  lies in registers.
+// k and v are split once per call, not once per query block: a first
+// kernel (flash_tf32_split_kv) writes their hi and lo parts, v's
+// transposed and permuted, into a workspace tile by tile in the layout of
+// shared memory, and the attention kernel fetches each part of a tile
+// with one bulk copy (cp.async.bulk, completing on an mbarrier) started by
+// one thread, so no thread stalls on the copy and the next tile's k
+// arrives during this tile's softmax and p . v.  The tensor cores truncate
+// as they accumulate, so s is summed from zero per 32 columns of the head
+// dim and pv from zero per kv tile, each added in IEEE f32 (acc = acc
+// alpha + pv).  At Dh 128 the q tile takes 64 KB and the k and v^T tiles'
+// two parts 128 KB of shared memory, one block of two warpgroups an SM.
+// What bounds it now: the two warpgroups run their products, softmax and
+// barriers in step, so the tensor cores idle while both run the softmax;
+// overlapping one warpgroup's softmax with the other's products is the
+// next step (PERF.md).  A warpgroup skips the kv tiles wholly in its
+// rows' causal future.  Designs on the way, at the shape above on an
+// H100 80GB HBM3 at 700 W (PERF.md): 1.37 ms (one warpgroup a block, kv
+// tiles of 32, k and v split in every block), 1.27 (q split once into
+// shared memory and read from there by every product), 0.99 (k and v
+// split once, kv tiles of 32).
+//
+// f32 at head dim 256 and the column slices of wider heads
+// (flash_f32_kernel, not redesigned: at Dh 256 the 3xTF32 kernel's q tile
+// and split k and v^T tiles would take 384 KB of shared memory): the CUDA
+// cores' 67 TFLOP/s.  256 threads each own 4 query rows x 4 kv columns of
+// s and 4 rows x Dh/16 columns of acc in registers, so every shared-memory
+// float4 feeds 4 (s) or 8-16 (acc) FMAs; the q tile, the k tile and the v
+// tile live in dynamic shared memory with a 4-float row pad
+// (conflict-free float4 reads), and p^T reuses the k tile's space.  q is
+// scaled as it is staged, as the TPU kernel scales it before the product;
+// the 3xTF32 kernel scales the staged tile once.
 //
 // bf16 (flash_bf16_kernel): the 989 TFLOP/s of the bf16 tensor cores
 // (0.069 ms at the shape above), which only Hopper's warpgroup products
@@ -76,6 +117,8 @@
 
 #include <type_traits>
 
+#include "wgmma_tf32.cuh"
+
 namespace {
 
 constexpr float NEG = -1e30f;   // the reference's masked score and initial max
@@ -92,7 +135,8 @@ struct Geo {
   static constexpr int LD = DH + 4;    // row stride of the q, k, v tiles (floats)
   static constexpr int LDP = BM + 4;   // row stride of p^T
   static constexpr int CD = DH / 16;   // output columns per thread
-  static constexpr int VW = CD < 4 ? CD : 4;  // in runs of VW adjacent ones
+  static constexpr int VW = 4;         // in runs of VW adjacent ones
+  static_assert(CD % VW == 0, "the instances: Dh 256, and 128 in column slices");
   static constexpr int KREGION = BN * LD > BN * LDP ? BN * LD : BN * LDP;
   static constexpr int SMEM = (BM * LD + KREGION + BN * LD) * 4;  // bytes
 };
@@ -259,14 +303,8 @@ __global__ void __launch_bounds__(NT, DH <= 128 ? 2 : 1) flash_f32_kernel(
       float vv[CD];
 #pragma unroll
       for (int g = 0; g < CD / VW; ++g) {
-        const float* src = vs + kv * LD + g * 16 * VW + tx * VW;
-        if constexpr (VW == 4) {
-          const float4 x = *reinterpret_cast<const float4*>(src);
-          vv[g * 4] = x.x; vv[g * 4 + 1] = x.y; vv[g * 4 + 2] = x.z; vv[g * 4 + 3] = x.w;
-        } else {
-          const float2 x = *reinterpret_cast<const float2*>(src);
-          vv[g * 2] = x.x; vv[g * 2 + 1] = x.y;
-        }
+        const float4 x = *reinterpret_cast<const float4*>(vs + kv * LD + g * 16 * VW + tx * VW);
+        vv[g * 4] = x.x; vv[g * 4 + 1] = x.y; vv[g * 4 + 2] = x.z; vv[g * 4 + 3] = x.w;
       }
 #pragma unroll
       for (int c = 0; c < CD; ++c) {
@@ -290,6 +328,327 @@ __global__ void __launch_bounds__(NT, DH <= 128 ? 2 : 1) flash_f32_kernel(
 }
 
 }  // namespace f32
+
+// ------------------------------------------------- f32 on the tensor cores
+namespace x3 {
+
+namespace t3 = tf32x3;
+constexpr int BM = 128;         // query rows per block: two warpgroups of 64
+constexpr int BN = 64;          // kv rows per tile
+constexpr int NT = 256;         // warp w owns rows 16 w .. 16 w + 15; warpgroup w / 4
+constexpr int AT = t3::ATOM;    // columns of a swizzle atom
+
+// The block's shared memory, each region 1,024-byte aligned: the q tile,
+// scaled, DH / AT atoms of [BM][AT]; the k tile's hi and lo parts, DH / AT
+// atoms of [BN][AT] each; v^T's hi and lo parts, BN / AT atoms of [DH][AT]
+// each.  A k or v^T part of a tile (KF floats) lies in the workspace as it
+// lies here, so one bulk copy moves it.
+template <int DH>
+struct Geo {
+  static constexpr int NA = DH / AT;     // atoms across the head dim
+  static constexpr int QF = BM * DH;     // floats of the q tile
+  static constexpr int KF = BN * DH;     // floats of one part of a k or v^T tile
+  static constexpr int SMEM = (QF + 4 * KF) * 4 + 1024;   // 1 KB to align
+  static_assert(DH % AT == 0 && BN % AT == 0, "whole atoms");
+};
+
+// float index of (row r, column c) of a tile of ROWS rows stored as atoms
+// of AT columns
+template <int ROWS>
+__device__ __forceinline__ int at(int r, int c) {
+  return (c / AT) * ROWS * AT + t3::swz(r, c % AT);
+}
+
+// k and v of one (batch, kv head) split once for every query block that
+// reads them, into the workspace tile by tile in the layout the tensor
+// cores read: k's hi and lo parts as atoms of [BN][AT]; v's transposed,
+// atoms of [DH][AT], its kv rows permuted within each 8 (row 2 i to
+// column i, row 2 i + 1 to column i + 4: the columns a thread's A
+// fragment holds where its accumulator holds columns 2 t, 2 t + 1); kv
+// rows from Sk on zero.  A block takes one kv tile, through shared memory
+// for the transpose; every access is of 4 floats, which the swizzle keeps
+// together.
+template <int DH>
+__global__ void __launch_bounds__(NT) flash_tf32_split_kv(
+    const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ khi,
+    float* __restrict__ klo, float* __restrict__ vthi, float* __restrict__ vtlo, int Sk) {
+  constexpr int KF = Geo<DH>::KF;
+  __shared__ float tile[BN][DH + 1];
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const size_t out = (bh * gridDim.x + blockIdx.x) * KF;   // this tile's parts
+  const int j0 = blockIdx.x * BN;
+  const auto split4 = [](float4 x, float* hi, float* lo) {
+    uint32_t h[4], l[4];
+    t3::split_tf32(x.x, h[0], l[0]);
+    t3::split_tf32(x.y, h[1], l[1]);
+    t3::split_tf32(x.z, h[2], l[2]);
+    t3::split_tf32(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+  };
+  for (int e = threadIdx.x; e < BN * DH / 4; e += NT) {
+    const int r = e / (DH / 4), c = (e % (DH / 4)) * 4, j = j0 + r;
+    const size_t src = (bh * Sk + j) * DH + c;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 x = j < Sk ? *reinterpret_cast<const float4*>(k + src) : zero;
+    const float4 y = j < Sk ? *reinterpret_cast<const float4*>(v + src) : zero;
+    split4(x, khi + out + at<BN>(r, c), klo + out + at<BN>(r, c));
+    tile[r][c] = y.x;
+    tile[r][c + 1] = y.y;
+    tile[r][c + 2] = y.z;
+    tile[r][c + 3] = y.w;
+  }
+  __syncthreads();
+  // columns sc .. sc + 3 of v^T's row d: kv rows 2 i, or 2 i + 1, of their 8
+  for (int e = threadIdx.x; e < DH * BN / 4; e += NT) {
+    const int d = e / (BN / 4), sc = (e % (BN / 4)) * 4;
+    const int r0 = (sc & ~7) + ((sc & 4) >> 2);
+    const float4 x = make_float4(tile[r0][d], tile[r0 + 2][d], tile[r0 + 4][d], tile[r0 + 6][d]);
+    const int o = (sc / AT) * DH * AT + t3::swz(d, sc % AT);
+    split4(x, vthi + out + o, vtlo + out + o);
+  }
+}
+
+// mbarriers for the bulk copies: one thread arms a barrier with the bytes
+// to come and starts the copies; every thread waits for the phase
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(t3::smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(t3::smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(t3::smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// bytes (a multiple of 16) from global to shared memory by the bulk-copy
+// engine, completing on bar
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(t3::smem_u32(dst)), "l"(src), "r"(bytes), "r"(t3::smem_u32(bar))
+      : "memory");
+}
+
+// The thread's A fragments of q for the AT columns of atom a: per 8-column
+// step, rows g, g + 8, g, g + 8 and columns t, t, t + 4, t + 4 of its
+// warp's rows, split into hi and lo
+__device__ __forceinline__ void q_frags(const float* qs, int a, int wrow,
+                                        uint32_t (&ah)[AT / 8][4], uint32_t (&al)[AT / 8][4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* atom = qs + a * BM * AT;
+#pragma unroll
+  for (int kk = 0; kk < AT / 8; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      t3::split_tf32(atom[t3::swz(wrow + g + (x & 1) * 8, kk * 8 + (x >> 1) * 4 + t)],
+                     ah[kk][x], al[kk][x]);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(NT, 1) flash_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ khi_g,
+    const float* __restrict__ klo_g, const float* __restrict__ vthi_g,
+    const float* __restrict__ vtlo_g, float* __restrict__ o, int H, int Hkv, int Sq, int Sk,
+    int causal, float scale) {
+  using G = Geo<DH>;
+  constexpr uint32_t PART = G::KF * 4;   // bytes of a part of a tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ uint64_t bars[2];           // k's copies, v^T's copies
+  float* qs =
+      reinterpret_cast<float*>(smem_raw + ((1024 - (t3::smem_u32(smem_raw) & 1023)) & 1023));
+  float* khi = qs + G::QF;
+  float* klo = khi + G::KF;
+  float* vhi = klo + G::KF;
+  float* vlo = vhi + G::KF;
+  const uint32_t khi_a = t3::smem_u32(khi), klo_a = t3::smem_u32(klo);
+  const uint32_t vhi_a = t3::smem_u32(vhi), vlo_a = t3::smem_u32(vlo);
+
+  const int iq = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wg = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = iq * BM, wrow = warp * 16, wr0 = r0 + wrow;
+  const int n_kv = (Sk + BN - 1) / BN;
+  const size_t tiles = ((size_t)b * Hkv + hk) * n_kv * G::KF;   // this kv head's tiles
+  const float* qh = q + ((size_t)b * H + h) * Sq * DH;
+  float* oh = o + ((size_t)b * H + h) * Sq * DH;
+
+  const int n_run = causal ? min(n_kv, (r0 + BM - 1) / BN + 1) : n_kv;
+  // the warpgroup's last tile: later ones lie wholly in its rows' causal future
+  const int wg_run = causal ? min(n_run, (r0 + wg * 64 + 63) / BN + 1) : n_run;
+  const auto copy_k = [&](int t) {
+    bar_expect(&bars[0], 2 * PART);
+    bulk_copy(khi, khi_g + tiles + (size_t)t * G::KF, PART, &bars[0]);
+    bulk_copy(klo, klo_g + tiles + (size_t)t * G::KF, PART, &bars[0]);
+  };
+  const auto copy_v = [&](int t) {
+    bar_expect(&bars[1], 2 * PART);
+    bulk_copy(vhi, vthi_g + tiles + (size_t)t * G::KF, PART, &bars[1]);
+    bulk_copy(vlo, vtlo_g + tiles + (size_t)t * G::KF, PART, &bars[1]);
+  };
+  if (threadIdx.x == 0) {
+    bar_init(&bars[0]);
+    bar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    copy_k(0);
+    copy_v(0);
+  }
+  // q rows r0.. by cp.async, then scaled once
+  {
+    constexpr int C4 = DH / 4, PER = BM * C4 / NT;
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int e = threadIdx.x + u * NT, r = e / C4, c = (e % C4) * 4;
+      const bool ok = r0 + r < Sq;
+      t3::cp_async16(qs + at<BM>(r, c), ok ? qh + (size_t)(r0 + r) * DH + c : qh, ok ? 16 : 0);
+    }
+    t3::cp_async_commit();
+    t3::cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < G::QF; i += NT) qs[i] = __fmul_rn(qs[i], scale);
+    __syncthreads();
+  }
+
+  // thread (g, t4) of warp w holds rows wr0 + g and wr0 + g + 8; of s,
+  // entry e is row g + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 t4 + (e & 1)
+  // of the kv tile; of acc likewise over the output columns
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
+
+  for (int it = 0; it < n_run; ++it) {
+    const int c0 = it * BN;
+    const bool run = it < wg_run;
+    float s[BN / 2], alpha[2];
+    if (run) {
+      // s = q . k^T, 3xTF32 one atom (32 columns of the head dim) at a
+      // time, each atom's products summed from zero (sp) and added to s
+      // with IEEE adds; the next atom's fragments are split while this
+      // atom's are on the tensor cores
+      float sp[BN / 2];
+      uint32_t ah[2][AT / 8][4], al[2][AT / 8][4];
+      q_frags(qs, 0, wrow, ah[0], al[0]);
+      bar_wait(&bars[0], it & 1);
+#pragma unroll
+      for (int a = 0; a < G::NA; ++a) {
+        const int st = a & 1;
+        t3::reg_fence(sp);
+        t3::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < AT / 8; ++kk) {
+          const uint32_t off = a * BN * AT * 4 + kk * 32;
+          t3::wgmma_tf32<BN>(sp, al[st][kk], t3::desc128(khi_a + off), kk);
+          t3::wgmma_tf32<BN>(sp, ah[st][kk], t3::desc128(klo_a + off), 1);
+          t3::wgmma_tf32<BN>(sp, ah[st][kk], t3::desc128(khi_a + off), 1);
+        }
+        t3::wg_commit();
+        if (a + 1 < G::NA) q_frags(qs, a + 1, wrow, ah[st ^ 1], al[st ^ 1]);
+        t3::wg_wait();
+#pragma unroll
+        for (int kk = 0; kk < AT / 8; ++kk)  // the fragments stay put until the products read them
+#pragma unroll
+          for (int x = 0; x < 4; ++x) asm volatile("" ::"r"(ah[st][kk][x]), "r"(al[st][kk][x]));
+        t3::reg_fence(sp);
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) s[e] = a == 0 ? sp[e] : __fadd_rn(s[e], sp[e]);
+      }
+    }
+    __syncthreads();   // every warp's products are done with the k tile
+    if (threadIdx.x == 0 && it + 1 < n_run) copy_k(it + 1);
+
+    if (run) {
+      // mask, and the online softmax; a row's columns lie with the 4
+      // threads t4 of one quad
+      const bool masked = c0 + BN > Sk || (causal && c0 + BN - 1 > wr0);
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        if (masked) {
+          const int col = c0 + (e >> 2) * 8 + 2 * t4 + (e & 1), row = wr0 + g + ((e >> 1) & 1) * 8;
+          if (col >= Sk || (causal && col > row)) s[e] = NEG;
+        }
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_cur = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(m[r] - m_cur);
+        m[r] = m_cur;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        s[e] = expf(s[e] - m[(e >> 1) & 1]);
+        l[(e >> 1) & 1] += s[e];
+      }
+
+      // pv = p . v from zero, 3xTF32: p's A fragment for kv step kk is
+      // entries 4 kk + {0, 2, 1, 3} of s (columns 2 t4, 2 t4 + 1 of rows
+      // g, g + 8), which v^T's permuted columns t4, t4 + 4 match; then acc
+      // = acc alpha + pv in IEEE f32
+      uint32_t ph[BN / 8][4], pl[BN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        t3::split_tf32(s[4 * kk], ph[kk][0], pl[kk][0]);
+        t3::split_tf32(s[4 * kk + 2], ph[kk][1], pl[kk][1]);
+        t3::split_tf32(s[4 * kk + 1], ph[kk][2], pl[kk][2]);
+        t3::split_tf32(s[4 * kk + 3], ph[kk][3], pl[kk][3]);
+      }
+      float pv[DH / 2];
+      bar_wait(&bars[1], it & 1);
+      t3::reg_fence(pv);
+      t3::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        const uint32_t off = (kk / 4) * DH * AT * 4 + (kk % 4) * 32;
+        t3::wgmma_tf32<DH>(pv, pl[kk], t3::desc128(vhi_a + off), kk);
+        t3::wgmma_tf32<DH>(pv, ph[kk], t3::desc128(vlo_a + off), 1);
+        t3::wgmma_tf32<DH>(pv, ph[kk], t3::desc128(vhi_a + off), 1);
+      }
+      t3::wg_commit();
+      t3::wg_wait();
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk)  // the fragments stay put until the products read them
+#pragma unroll
+        for (int x = 0; x < 4; ++x) asm volatile("" ::"r"(ph[kk][x]), "r"(pl[kk][x]));
+      t3::reg_fence(pv);
+#pragma unroll
+      for (int e = 0; e < DH / 2; ++e) acc[e] = fmaf(acc[e], alpha[(e >> 1) & 1], pv[e]);
+    }
+    __syncthreads();   // every warp's products are done with the v^T tile
+    if (threadIdx.x == 0 && it + 1 < n_run) copy_v(it + 1);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = wr0 + g + 8 * r;
+    if (row >= Sq) continue;
+    const float li = l[r] == 0.0f ? 1.0f : l[r];
+    float* dst = oh + (size_t)row * DH + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<float2*>(dst + n * 8) =
+          make_float2(acc[4 * n + 2 * r] / li, acc[4 * n + 2 * r + 1] / li);
+  }
+}
+
+}  // namespace x3
 
 // ----------------------------------------------------------------- bf16
 namespace tc {
@@ -712,51 +1071,104 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   return (int)cudaGetLastError();
 }
 
-// the instance for (Dqk, Dv): Dqk == Dv in {32, 64, 128, 256}, or Dv 128
-// with Dqk a larger multiple of 128 (a column slice of a wide head)
-template <bool BF16>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int B, int H,
-              int Hkv, int Sq, int Sk, int dqk, int dv, int causal, float scale,
-              cudaStream_t st) {
-  const auto run = [&](auto dh, auto slabs) {
-    constexpr int DH = decltype(dh)::value;
-    constexpr bool SLABS = decltype(slabs)::value;
-    if constexpr (BF16)
-      return launch_bf16<DH, SLABS>(q, k, v, o, B, H, Hkv, Sq, Sk, dqk, causal, scale, st);
-    else
-      return launch_f32<DH, SLABS>(q, k, v, o, B, H, Hkv, Sq, Sk, dqk, causal, scale, st);
+// The split of k and v into ws (kernel.py's tf32_workspace: k's hi and lo
+// parts, then v^T's, each (B, Hkv, n_kv tiles, BN x dh) in the layout of
+// shared memory), then the attention over them
+int launch_tf32(const void* q, const void* k, const void* v, void* o, void* ws, long ws_floats,
+                int B, int H, int Hkv, int Sq, int Sk, int dh, int causal, float scale,
+                cudaStream_t st) {
+  const int n_kv = (Sk + x3::BN - 1) / x3::BN;
+  const size_t part = (size_t)B * Hkv * n_kv * x3::BN * dh;
+  if (ws_floats < (long)(4 * part) || Hkv > 65535) return (int)cudaErrorInvalidValue;
+  float* khi = (float*)ws;
+  float *klo = khi + part, *vthi = klo + part, *vtlo = vthi + part;
+  const auto run = [&](auto dh_c) {
+    constexpr int DH = decltype(dh_c)::value;
+    x3::flash_tf32_split_kv<DH><<<dim3(n_kv, Hkv, B), x3::NT, 0, st>>>(
+        (const float*)k, (const float*)v, khi, klo, vthi, vtlo, Sk);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    constexpr int SMEM = x3::Geo<DH>::SMEM;
+    const auto kernel = x3::flash_tf32_kernel<DH>;
+    e = allow_smem(kernel, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((Sq + x3::BM - 1) / x3::BM, H, B);
+    kernel<<<grid, x3::NT, SMEM, st>>>((const float*)q, khi, klo, vthi, vtlo, (float*)o, H, Hkv,
+                                       Sq, Sk, causal, scale);
+    return (int)cudaGetLastError();
   };
   using std::integral_constant;
-  using whole = integral_constant<bool, false>;
-  if (dqk == dv) {
-    switch (dv) {
-      case 32: return run(integral_constant<int, 32>{}, whole{});
-      case 64: return run(integral_constant<int, 64>{}, whole{});
-      case 128: return run(integral_constant<int, 128>{}, whole{});
-      case 256: return run(integral_constant<int, 256>{}, whole{});
-      default: return (int)cudaErrorInvalidValue;
-    }
+  switch (dh) {
+    case 32: return run(integral_constant<int, 32>{});
+    case 64: return run(integral_constant<int, 64>{});
+    case 128: return run(integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (dv == 128 && dqk > dv && dqk % dv == 0)
-    return run(integral_constant<int, 128>{}, integral_constant<bool, true>{});
-  return (int)cudaErrorInvalidValue;
+}
+
+// The routes, as kernel.py's kernel_route names them
+enum Route { F32_CUDA_CORES = 0, BF16_WGMMA = 1, F32_3XTF32 = 2 };
+
+// The instance for (route, Dqk, Dv): the bf16 kernel at Dqk == Dv in {32,
+// 64, 128, 256}; the 3xTF32 kernel at Dqk == Dv in {32, 64, 128}; the
+// CUDA-core f32 kernel at Dqk == Dv == 256; on the bf16 and CUDA-core f32
+// kernels also Dv 128 with Dqk a larger multiple of it (a column slice of
+// a wide head)
+int launch_route(int route, const void* q, const void* k, const void* v, void* o, void* ws,
+                 long ws_floats, int B, int H, int Hkv, int Sq, int Sk, int dqk, int dv,
+                 int causal, float scale, cudaStream_t st) {
+  using std::integral_constant;
+  using whole = integral_constant<bool, false>;
+  using slabs = integral_constant<bool, true>;
+  const auto bf16 = [&](auto dh, auto sl) {
+    constexpr int DH = decltype(dh)::value;
+    return launch_bf16<DH, decltype(sl)::value>(q, k, v, o, B, H, Hkv, Sq, Sk, dqk, causal,
+                                                 scale, st);
+  };
+  const auto f32 = [&](auto sl) {
+    constexpr bool SLABS = decltype(sl)::value;
+    return launch_f32<SLABS ? 128 : 256, SLABS>(q, k, v, o, B, H, Hkv, Sq, Sk, dqk, causal,
+                                                scale, st);
+  };
+  const bool sliced = dv == 128 && dqk > dv && dqk % dv == 0;
+  switch (route) {
+    case F32_3XTF32:
+      return dqk == dv ? launch_tf32(q, k, v, o, ws, ws_floats, B, H, Hkv, Sq, Sk, dv, causal,
+                                     scale, st)
+                       : (int)cudaErrorInvalidValue;
+    case F32_CUDA_CORES:
+      if (dqk == dv && dv == 256) return f32(whole{});
+      return sliced ? f32(slabs{}) : (int)cudaErrorInvalidValue;
+    case BF16_WGMMA:
+      if (sliced) return bf16(integral_constant<int, 128>{}, slabs{});
+      if (dqk != dv) return (int)cudaErrorInvalidValue;
+      switch (dv) {
+        case 32: return bf16(integral_constant<int, 32>{}, whole{});
+        case 64: return bf16(integral_constant<int, 64>{}, whole{});
+        case 128: return bf16(integral_constant<int, 128>{}, whole{});
+        case 256: return bf16(integral_constant<int, 256>{}, whole{});
+        default: return (int)cudaErrorInvalidValue;
+      }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q (B, H, Sq, Dqk), k (B, Hkv, Sk, Dqk), v (B, Hkv, Sk, Dv), o (B, H, Sq,
-// Dv), contiguous, all f32 (bf16 == 0) or all bf16; Dqk == Dv in {32, 64,
-// 128, 256}, or Dv 128 and Dqk a multiple of it; H a multiple of Hkv.
-// Every element of o is written.  Returns cudaGetLastError() after the
-// launch.
+// Dv), contiguous, all f32 (routes F32_*) or all bf16 (BF16_WGMMA), the
+// head dims one of launch_route's instances; H a multiple of Hkv; ws an
+// f32 workspace of ws_floats, for F32_3XTF32 at least kernel.py's
+// tf32_workspace (else unused, may be null).  Every element of o is
+// written.  Returns the first CUDA error of the launches.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int H, int Hkv, int Sq,
-                                 int Sk, int Dqk, int Dv, int causal, int bf16,
+                                 void* o, void* ws, long ws_floats, int B, int H, int Hkv,
+                                 int Sq, int Sk, int Dqk, int Dv, int causal, int route,
                                  float scale, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || Sq < 1 || Sk < 1 ||
       B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? launch_dh<true>(q, k, v, o, B, H, Hkv, Sq, Sk, Dqk, Dv, causal, scale, st)
-              : launch_dh<false>(q, k, v, o, B, H, Hkv, Sq, Sk, Dqk, Dv, causal, scale, st);
+  return launch_route(route, q, k, v, o, ws, ws_floats, B, H, Hkv, Sq, Sk, Dqk, Dv, causal,
+                      scale, (cudaStream_t)stream);
 }

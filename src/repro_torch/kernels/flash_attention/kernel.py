@@ -15,10 +15,11 @@ block to the next:
 
 :func:`flash_attention_kernel_call` runs it: on a CUDA tensor it launches
 ``csrc/flash_attn.cu`` (whose header says what bounds it on an H100 and
-how the design answers that: CUDA-core f32 for f32, bf16 tensor cores
-with f32 accumulation for bf16) or raises; on a CPU tensor it runs
-:func:`flash_attention_plain`, the same online softmax in PyTorch, which
-is also the kernel's oracle on the card.  The kernel is compiled for the
+how the design answers that: bf16 tensor cores with f32 accumulation for
+bf16; 3xTF32 on the tensor cores for f32 at head dims up to 128, the
+CUDA cores above that, as :func:`kernel_route` picks) or raises; on a
+CPU tensor it runs :func:`flash_attention_plain`, the same online
+softmax in PyTorch, which is also the kernel's oracle on the card.  The kernel is compiled for the
 head dims :data:`KERNEL_HEAD_DIMS`; the wrapper pads any other head dim up
 to the next of them with zero columns (``q·k`` does not change, and the
 extra output columns are sliced off).  A head dim above 256 is padded to
@@ -39,17 +40,37 @@ from .._build import load
 
 __all__ = [
     "KERNEL_HEAD_DIMS",
+    "ROUTES",
     "SLICE",
+    "TF32_HEAD_DIMS",
+    "TF32_KV_TILE",
     "column_slices",
     "flash_attention_kernel_call",
     "flash_attention_plain",
     "kernel_head_dim",
+    "kernel_route",
+    "tf32_workspace",
 ]
 
 NEG_INF = -1e30  # the masked score and the running max's start, as the reference's
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the head dims the CUDA kernel is compiled for
 SLICE = 128   # output columns per launch above the largest of them
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the kernels of csrc/flash_attn.cu, by the code its launcher takes
+ROUTES = {"f32_cuda_cores": 0, "bf16_wgmma": 1, "f32_3xtf32": 2}
+TF32_HEAD_DIMS = (32, 64, 128)   # the f32 widths on the tensor cores
+TF32_KV_TILE = 64   # the 3xTF32 kernel's kv tile (csrc x3::BN)
+
+
+def kernel_route(dtype: torch.dtype, dqk: int, dv: int) -> str:
+    """The kernel of one launch over q and k ``dqk`` wide and v ``dv``
+    wide (kernel widths, after padding and slicing): bf16 on the tensor
+    cores (``"bf16_wgmma"``); f32 as 3xTF32 on the tensor cores
+    (``"f32_3xtf32"``) at the whole widths :data:`TF32_HEAD_DIMS`, and on
+    the CUDA cores (``"f32_cuda_cores"``) at 256 and in column slices."""
+    if dtype == torch.bfloat16:
+        return "bf16_wgmma"
+    return "f32_3xtf32" if dqk == dv and dv in TF32_HEAD_DIMS else "f32_cuda_cores"
 
 
 def kernel_head_dim(dh: int) -> int:
@@ -60,6 +81,15 @@ def kernel_head_dim(dh: int) -> int:
         if dh <= width:
             return width
     return -(-dh // SLICE) * SLICE
+
+
+def tf32_workspace(B: int, Hkv: int, Sk: int, dh: int) -> int:
+    """Floats of the 3xTF32 route's workspace: k and v split once into
+    TF32 hi and lo parts for every query block that reads them, four parts
+    of ``(B, Hkv, Sp, dh)`` (k's, and v's transposed, tile by tile), ``Sp``
+    = ``Sk`` rounded up to :data:`TF32_KV_TILE`."""
+    sp = -(-Sk // TF32_KV_TILE) * TF32_KV_TILE
+    return 4 * B * Hkv * sp * dh
 
 
 def column_slices(fn: Callable, q, k, v, width: int) -> torch.Tensor:
@@ -112,7 +142,7 @@ def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
 def _launcher():
     fn = load("flash_attn").flash_attn_launch
     p = ctypes.c_void_p
-    fn.argtypes = [p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 5 + [ctypes.c_long] + [ctypes.c_int] * 9 + [ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -182,9 +212,12 @@ def _launch(q, k, v, sm_scale: float, causal: bool) -> torch.Tensor:
     B, H, Sq, Dqk = q.shape
     Hkv, Sk, Dv = v.shape[1], v.shape[2], v.shape[3]
     out = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
+    route = kernel_route(q.dtype, Dqk, Dv)
+    n_ws = tf32_workspace(B, Hkv, Sk, Dv) if route == "f32_3xtf32" else 0
+    ws = torch.empty((n_ws,), dtype=torch.float32, device=q.device)
     err = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, Hkv, Sq, Sk, Dqk, Dv, int(causal), int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(), n_ws,
+        B, H, Hkv, Sq, Sk, Dqk, Dv, int(causal), ROUTES[route],
         sm_scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

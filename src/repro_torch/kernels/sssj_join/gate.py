@@ -26,12 +26,12 @@ import torch
 
 from ..._device import DeviceLike, ieee_f32, resolve_device
 from .._build import load
-from .kernel import kernel_tile_edge
 
 __all__ = [
     "StripSummary",
     "gate_ub",
     "gate_ub_plain",
+    "gate_workspace",
     "init_strip_summary",
     "refresh_strip_summary",
     "strip_gate",
@@ -169,11 +169,23 @@ def gate_ub_plain(qa, qcn, vmax, cnorm, *, block_q: int) -> torch.Tensor:
     return torch.minimum(pb, lb).reshape(Qp // block_q, block_q, ns).amax(1)
 
 
+GATE_SPLIT = 4      # the kernel's products split d into this many parts (csrc/gate_ub.cu CK)
+
+
+def gate_workspace(Qp: int, ns: int, block_q: int) -> tuple[int, int, int]:
+    """The shape of the f32 workspace the gate kernel's products write
+    and its reduction reads: ``(GATE_SPLIT, Qp, ns)`` partial sums, one
+    per part of the features.  Raises for tiles that do not divide ``Qp``."""
+    if block_q < 1 or Qp % block_q:
+        raise ValueError(f"Qp {Qp} must be a multiple of block_q {block_q} >= 1")
+    return (GATE_SPLIT, Qp, ns)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load("gate_ub")
     p = ctypes.c_void_p
-    lib.gate_ub_launch.argtypes = [p] * 5 + [ctypes.c_int] * 5 + [p]
+    lib.gate_ub_launch.argtypes = [p] * 6 + [ctypes.c_int] * 6 + [p]
     lib.gate_ub_launch.restype = ctypes.c_int
     return lib
 
@@ -185,19 +197,20 @@ def gate_ub(qa, qcn, vmax, cnorm, *, block_q: int) -> torch.Tensor:
         return gate_ub_plain(qa, qcn, vmax, cnorm, block_q=block_q)
     if qa.device.type != "cuda":
         raise ValueError(f"no gate kernel for device {qa.device}")
-    kernel_tile_edge(block_q)
     Qp, d = qa.shape
     ns, nc = cnorm.shape
-    if (Qp % block_q or vmax.shape != (ns, d) or qcn.shape != (Qp, nc)
+    ws_shape = gate_workspace(Qp, ns, block_q)
+    if (vmax.shape != (ns, d) or qcn.shape != (Qp, nc)
             or any(x.dtype != torch.float32 or x.device != qa.device
                    for x in (qa, qcn, vmax, cnorm))):
         raise ValueError("gate bound needs f32 qa (Qp, d), qcn (Qp, nc), "
                          "vmax (ns, d), cnorm (ns, nc) on one device")
     ins = [x.contiguous() for x in (qa, qcn, vmax, cnorm)]
+    ws = torch.empty(ws_shape, dtype=torch.float32, device=qa.device)
     ub = torch.empty((Qp // block_q, ns), dtype=torch.float32, device=qa.device)
     err = _lib().gate_ub_launch(
-        *(x.data_ptr() for x in ins), ub.data_ptr(), Qp, ns, d, nc, block_q,
-        torch.cuda.current_stream(qa.device).cuda_stream,
+        *(x.data_ptr() for x in ins), ws.data_ptr(), ub.data_ptr(), Qp, ns, d, nc, block_q,
+        GATE_SPLIT, torch.cuda.current_stream(qa.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"gate_ub kernel launch failed: CUDA error {err}")
@@ -242,7 +255,9 @@ def strip_gate(
     Qp, d_pad = qp.shape
     nq = Qp // block_q
     ns, d_s = summary.vmax.shape
-    vmax = torch.nn.functional.pad(summary.vmax.float(), (0, d_pad - d_s))
+    vmax = summary.vmax.float()
+    if d_s < d_pad:
+        vmax = torch.nn.functional.pad(vmax, (0, d_pad - d_s))
     qa = qp.float().abs()
     qcn = chunk_norms(qp, chunk_d)
     ub_tile = gate_ub(qa, qcn, vmax, summary.cnorm.float(), block_q=block_q)

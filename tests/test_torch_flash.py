@@ -117,6 +117,45 @@ def test_kernel_head_dim(dh, width):
     assert tkernel.kernel_head_dim(dh) == width
 
 
+@pytest.mark.parametrize("dtype,dh,route", [
+    ("bfloat16", 32, "bf16_wgmma"), ("bfloat16", 128, "bf16_wgmma"),
+    ("bfloat16", 256, "bf16_wgmma"), ("bfloat16", 512, "bf16_wgmma"),
+    ("float32", 1, "f32_3xtf32"), ("float32", 32, "f32_3xtf32"), ("float32", 64, "f32_3xtf32"),
+    ("float32", 80, "f32_3xtf32"), ("float32", 128, "f32_3xtf32"),
+    ("float32", 200, "f32_cuda_cores"), ("float32", 256, "f32_cuda_cores"),
+    ("float32", 320, "f32_cuda_cores"), ("float32", 512, "f32_cuda_cores"),
+])
+def test_kernel_route(dtype, dh, route):
+    """The kernel that runs each head dim: the launch's widths after the
+    wrapper's padding and column slicing.  f32 keeps the CUDA-core kernel
+    at 256 and in column slices; every bf16 width runs on the tensor cores."""
+    width = tkernel.kernel_head_dim(dh)
+    per_launch = width if width in tkernel.KERNEL_HEAD_DIMS else tkernel.SLICE
+    assert tkernel.kernel_route(T_DTYPE[dtype], width, per_launch) == route
+    assert tkernel.ROUTES[route] in (0, 1, 2)
+
+
+@pytest.mark.parametrize("B,Hkv,Sk,dh,floats", [
+    (1, 8, 4096, 128, 4 * 8 * 4096 * 128),    # qwen3-0.6b's kv heads: 64 MiB
+    (2, 3, 100, 64, 4 * 2 * 3 * 128 * 64),    # padded to whole kv tiles of 64
+    (1, 1, 1, 32, 4 * 64 * 32),
+])
+def test_tf32_workspace(B, Hkv, Sk, dh, floats):
+    """k's and v's hi and lo parts, padded to whole kv tiles."""
+    assert tkernel.tf32_workspace(B, Hkv, Sk, dh) == floats
+
+
+def test_flash_f32_many_kv_tiles_matches_pallas_interpret():
+    """f32 over 16 kv tiles of the reference's blocks of 64 (S 512, so
+    the kernel's kv tiles of 32 run 16 in a row): the running max, its
+    rescaling and the causal skip, held at the file's f32 tolerance."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(512, 1, 4, 2, 512, 512, 128), "float32")
+    want = j_flash_attention(jq, jk, jv, block_q=64, block_k=64)
+    got = flash_attention(tq, tk, tv, block_q=64, block_k=64, device=CPU)
+    _close(got, want, "float32")
+    _close(got, j_attention_ref(jq, jk, jv, sm_scale=128 ** -0.5, causal=True), "float32")
+
+
 @pytest.mark.parametrize("Dh", [320, 512])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_wide_head_dims_match_reference(monkeypatch, Dh, dtype):

@@ -164,9 +164,98 @@ def test_gate_bound_matches_pallas_interpret_at_tile_edges(bq, bw):
                               torch.from_numpy(np.array(s.cnorm)), block_q=bq)
     assert got.shape == (2, 5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-    # the kernel runs the tile in the compiled edge that holds it, or in
-    # bands of 128 rows above that
-    assert tgate.kernel_tile_edge(bq) == min(t for t in (32, 64, 128) if t >= min(bq, 128))
+    # the kernel's order of summation gives the same bounds
+    blocked = _gate_ub_blocked(qa, np.asarray(qcn), np.asarray(s.vmax),
+                               np.asarray(s.cnorm), bq)
+    np.testing.assert_allclose(blocked, np.asarray(want), atol=1e-5)
+
+
+GATE_SUB = 32   # features per sub-slab of csrc/gate_ub.cu's products (KS)
+
+
+def _gate_ub_blocked(qa, qcn, vmax, cnorm, bq):
+    """``csrc/gate_ub.cu``'s order of summation in numpy: the features cut
+    into ``GATE_SPLIT`` parts of whole sub-slabs of ``GATE_SUB``, each
+    sub-slab's products summed on their own and added to its part's sum,
+    the parts added in order; then, per query tile, the max over its rows
+    of the min with the chunk-ℓ2 bound."""
+    Qp, d = qa.shape
+    nsub = -(-d // GATE_SUB)
+    per = -(-nsub // tgate.GATE_SPLIT)
+    pb = np.zeros((Qp, vmax.shape[0]), np.float32)
+    for part in range(tgate.GATE_SPLIT):
+        acc = np.zeros_like(pb)
+        for sb in range(part * per, min(nsub, part * per + per)):
+            f = slice(GATE_SUB * sb, min(GATE_SUB * (sb + 1), d))
+            acc += qa[:, f] @ vmax[:, f].T
+        pb += acc
+    v = np.minimum(pb, qcn @ cnorm.T)
+    return v.reshape(Qp // bq, bq, -1).max(1)
+
+
+@pytest.mark.parametrize("Qp,ns,bq", [
+    (128, 2048, 128),   # the main path's shapes
+    (256, 40, 64), (96, 5, 48), (7, 3, 1), (300, 100, 100), (512, 40, 256),
+])
+def test_gate_workspace(Qp, ns, bq):
+    """The partial sums the kernel's products write: one (Qp, ns) slice per
+    part of the features."""
+    assert tgate.gate_workspace(Qp, ns, bq) == (tgate.GATE_SPLIT, Qp, ns)
+
+
+@pytest.mark.parametrize("Qp,ns,bq", [(0, 1, 0), (100, 4, 48)])
+def test_gate_workspace_refuses_bad_tiles(Qp, ns, bq):
+    with pytest.raises(ValueError, match="multiple of block_q"):
+        tgate.gate_workspace(Qp, ns, bq)
+
+
+@pytest.mark.parametrize("Qp,d,bq,ns", [(96, 100, 48, 70), (7, 40, 1, 3), (300, 256, 100, 130)])
+def test_gate_bound_blocking_matches_pallas_interpret(Qp, d, bq, ns):
+    """The kernel's order of summation against the TPU kernel's body where
+    it has ragged parts: a ragged last sub-slab (d 100, 40), parts of d
+    with no sub-slab (d 40: two sub-slabs in eight parts), one-row tiles,
+    tiles that are not a power of two."""
+    rng = np.random.default_rng(Qp + d + bq)
+    qa = np.abs(_unit(rng, Qp, d))
+    vmax = np.abs(rng.standard_normal((ns, d)).astype(np.float32)) / 8
+    qcn = np.abs(rng.standard_normal((Qp, 4)).astype(np.float32))
+    cnorm = np.abs(rng.standard_normal((ns, 4)).astype(np.float32))
+    want = jgate._tile_ub_pallas(*map(jnp.asarray, (qa, qcn, vmax, cnorm)), block_q=bq,
+                                 interpret=True)
+    np.testing.assert_allclose(_gate_ub_blocked(qa, qcn, vmax, cnorm, bq), np.asarray(want),
+                               atol=1e-5)
+    got = tgate.gate_ub(*map(torch.from_numpy, (qa, qcn, vmax, cnorm)), block_q=bq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas"])
+@pytest.mark.parametrize("d", [100, 128])
+def test_strip_gate_narrow_vmax_matches_reference(impl, d):
+    """Window rows of ``d`` features against queries padded to the next
+    ``chunk_d`` multiple: at d 100 the summary's vmax is narrower than the
+    queries and is zero-padded, at d 128 it is taken as it is."""
+    rng = np.random.default_rng(d)
+    cap, bq, bw, chunk, d_pad = 128, 32, 16, 32, 128
+    vecs, ts, uids = _window(rng, cap, d, 100)
+    q = np.zeros((64, d_pad), np.float32)
+    q[:, :d] = _unit(rng, 64, d)
+    q[:8, :d] = vecs[90:98]                           # near-duplicates: alive
+    tq = (10.0 + rng.random(64)).astype(np.float32)
+    jsum = jgate.summarize_strips(jnp.asarray(vecs), jnp.asarray(ts),
+                                  jnp.asarray(uids), block_w=bw, chunk_d=chunk)
+    assert jsum.vmax.shape == (cap // bw, d)
+    want_gate, want_stats = jgate.strip_gate(
+        jnp.asarray(q), jsum, block_q=bq, chunk_d=chunk, tq_lo=jnp.min(tq),
+        tq_hi=jnp.max(tq), th_min=0.5, lam_min=0.05, impl=impl, interpret=True,
+    )
+    tsum = tgate.StripSummary(*(torch.from_numpy(np.array(x)) for x in jsum))
+    got_gate, got_stats = tgate.strip_gate(
+        torch.from_numpy(q), tsum, block_q=bq, chunk_d=chunk, tq_lo=float(tq.min()),
+        tq_hi=float(tq.max()), th_min=0.5, lam_min=0.05, device=CPU,
+    )
+    np.testing.assert_array_equal(got_gate.numpy(), np.asarray(want_gate))
+    np.testing.assert_array_equal(got_stats.numpy(), np.asarray(want_stats))
+    assert np.asarray(want_gate).any() and not np.asarray(want_gate).all()
 
 
 @pytest.mark.parametrize("cap", [40, 64])
