@@ -26,7 +26,21 @@ kernel timings, see ``main``):
    through ``join_impl="dense"`` on the card;
 4. the dense-emission path: the same engine and stream with
    ``emit_dense=True`` (the dense tile-join kernel and the row-major
-   compaction), held against both runs of phase 3;
+   compaction), held against both runs of phase 3; then, on phase 3's
+   stream, each held against a ``join_impl="dense"`` engine on the card
+   with its launches read around its own run:
+   a. the scan route, ``join_impl="scan"`` (the gate kernel, then batched
+      products over the strips its walk visits), also against the kernel
+      route's gate counters, timed beside both routes;
+   b. ``SSSJService(block=64)`` in strict mode (``tile_k`` 4,096) in
+      requests of 4,096: pairs, duplicate groups, snapshot and
+      Prometheus text; its candidate buffers' bytes and merge time;
+   c. ``BlockedStreamJoiner`` at 128 x 128 tiles (``tile_k`` 16,384);
+   d. ``TokenPipeline`` with ``DedupFilter(dim=1024, capacity=262144,
+      block=64)`` for ``PIPELINE_STEPS`` steps, until its ring wraps, its
+      keep-masks against the same pipeline's whose filter runs
+      ``join_impl="dense"`` (equal outside documents whose exact best
+      score lies within ``BAND`` of θ);
 5. flash attention through ``repro_torch.kernels.flash_attention`` at
    the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
    qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
@@ -34,11 +48,13 @@ kernel timings, see ``main``):
    non-causal case, each output held against
    ``flash_attention_plain`` on the card, timed beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls),
-   with the kernel route each head dim takes;
+   with the kernel route each head dim takes.
+   Phases 2 and 5 run last, in a child process (``--kernel-phases``)
+   whose ``torch.profiler`` no engine phase has used;
 6. the ``kernels`` line: launches, error, times (``ms`` and
    ``device_ms``, the plain version's and the library call's beside) and
    bound of each kernel, the launches counted over the run of its own
-   path;
+   path, and over each path of phases 3-4 (``launches_by_path``);
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of the JAX package, and exits non-zero without a result
@@ -48,6 +64,7 @@ when there is no GPU or when ``src/repro_torch`` is not beside it.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -730,9 +747,9 @@ def _run_engine(dev, requests, n_profiled=2, **kw):
 def _check_same_emission(a, b, label):
     """Two engine runs over one stream drained the same pairs: every
     pair finite, ≥ θ and newer-first; the pair sets equal outside the
-    ε-band around θ; common scores within ``FLOAT_TOL``; row masks equal
-    outside the rows of band pairs.  Returns ``(band pairs, max score
-    error)``."""
+    ε-band around θ; common scores within ``FLOAT_TOL``; row masks (where
+    both runs drained them) equal outside the rows of band pairs.  Returns
+    ``(band pairs, max score error)``."""
     for ua, ub, sc in (a["pairs"], b["pairs"]):
         if not (np.isfinite(sc).all() and (sc >= np.float32(THETA)).all()
                 and (ua > ub).all() and (ub >= 0).all()):
@@ -749,9 +766,10 @@ def _check_same_emission(a, b, label):
     if score_err > FLOAT_TOL:
         raise AssertionError(f"{label}: pair scores differ by {score_err}")
     band_rows = {x for x, _ in differ}
-    mask_diff = set(np.nonzero(a["mask"] != b["mask"])[0].tolist())
-    if not mask_diff <= band_rows:
-        raise AssertionError(f"{label}: row masks differ at rows {sorted(mask_diff)[:10]}")
+    if a.get("mask") is not None and b.get("mask") is not None:
+        mask_diff = set(np.nonzero(a["mask"] != b["mask"])[0].tolist())
+        if not mask_diff <= band_rows:
+            raise AssertionError(f"{label}: row masks differ at rows {sorted(mask_diff)[:10]}")
     return band, score_err
 
 
@@ -840,6 +858,419 @@ def phase_dense_path(dev, requests, main_runs, smi) -> dict:
         "versus": checks, "launches": launches, "stats": st,
         "profile": run["profile"],
     })
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# phases 4a-4d: the scan route and the single-engine consumers
+# --------------------------------------------------------------------- #
+PRUNE_KEYS = ("tiles_skipped_time", "tiles_skipped_l2", "strips_survived")
+# the consumers' tile edge: SSSJService(block=64) and DedupFilter(block=64)
+CONSUMER_BLOCK = 64
+# TokenPipeline at qwen3's vocabulary, a batch of 256 documents of 2,048
+# tokens, 15 % planted near-duplicates of the step before
+PIPELINE = dict(vocab_size=151936, batch=256, seq_len=2048, dup_frac=0.15)
+# enough steps that the filter's ring wraps: 1,024 batches of 256 fill its
+# 262,144 slots, 6 more overwrite the oldest 1,536
+PIPELINE_STEPS = CAPACITY // PIPELINE["batch"] + 6
+
+
+def _launch_counters() -> dict:
+    from repro_torch.kernels.sssj_join.gate import gate_ub
+    from repro_torch.kernels.sssj_join.kernel import (
+        sssj_join_candidates_kernel_call,
+        sssj_join_kernel_call,
+    )
+
+    return {"sssj_cand": sssj_join_candidates_kernel_call, "gate_ub": gate_ub,
+            "sssj_dense": sssj_join_kernel_call}
+
+
+def _count_launches(fn):
+    """``fn()``'s result and each kernel's launches during it: every
+    counter is set to 0 just before and read just after."""
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    return out, {name: c.launches for name, c in counters.items()}
+
+
+def _expect_launches(label, launches, n_micro, window_joins=True):
+    """The kernel route's launches: two tile joins (window and self) and
+    one gate a micro-batch; the scan launches the gate alone."""
+    want = ({"sssj_cand": 2 * n_micro, "gate_ub": n_micro, "sssj_dense": 0}
+            if window_joins else {"sssj_cand": 0, "gate_ub": n_micro, "sssj_dense": 0})
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+
+
+def _n_micro(requests, mb: int) -> int:
+    return sum(-(-len(v) // mb) for v, _ in requests)
+
+
+def _pairs_run(pairs) -> dict:
+    """A consumer's ``(uid_a, uid_b, score)`` list as ``_check_same_emission``
+    takes an engine run (no row masks)."""
+    ua, ub, sc = (np.array(x) for x in zip(*pairs)) if pairs else ([], [], [])
+    return {"pairs": (np.asarray(ua, np.int32), np.asarray(ub, np.int32),
+                      np.asarray(sc, np.float32)), "mask": None}
+
+
+def _route_times(run, n_profiled_micro: int) -> dict:
+    """Items/s of a timed run, and per micro-batch from its profiled tail:
+    device launches, device and wall ms, the device's busy share."""
+    p = run["profile"]
+    return {"items_per_s": run["timed_items"] / run["seconds"],
+            "launches_per_micro_batch": p["device_launches"] / n_profiled_micro,
+            "device_ms_per_micro_batch": p["device_busy_ms"] / n_profiled_micro,
+            "wall_ms_per_micro_batch": p["wall_ms"] / n_profiled_micro,
+            "device_busy_share": p["device_busy_share"]}
+
+
+def phase_scan_route(dev, requests, main_runs, smi) -> dict:
+    """``join_impl="scan"`` over phase 3's stream: the strip gate's kernel,
+    then batched products over the strips the walk visits.  Held against
+    the dense oracle (pairs, scores, row masks, drop and overflow
+    counters) and the kernel route (the gate's counters), and timed beside
+    both from the same kind of profiled tail."""
+    run, launches = _count_launches(lambda: _run_engine(dev, requests, join_impl="scan"))
+    _expect_launches("scan route", launches, _n_micro(requests, MICRO), window_joins=False)
+    band, score_err = _check_same_emission(run, main_runs["dense"], "scan route vs dense")
+    for key in ("pairs_dropped_budget", "pairs_dropped_tile", "window_overflow"):
+        if run["stats"][key] != main_runs["dense"]["stats"][key]:
+            raise AssertionError(f"scan {key}: {run['stats'][key]} vs dense "
+                                 f"{main_runs['dense']['stats'][key]}")
+    kern_m = main_runs["kernel"]["metrics"]
+    prune = {k: run["metrics"][f"engine/prune/{k}"] for k in PRUNE_KEYS}
+    if prune != {k: kern_m[f"engine/prune/{k}"] for k in PRUNE_KEYS}:
+        raise AssertionError(f"scan prune counters {prune} differ from the kernel "
+                             f"route's")
+    n_prof = _n_micro(requests[-2:], MICRO)
+    rec = {"phase": "scan_route", "nvidia_smi": smi, "n_items": N_ITEMS,
+           "pairs": len(run["pairs"][0]), "band_pairs": len(band),
+           "max_score_err": score_err, "launches": launches, "prune": prune,
+           "profiled_micro_batches": n_prof,
+           **{name: _route_times(r, n_prof)
+              for name, r in (("scan", run), ("kernel", main_runs["kernel"]),
+                              ("dense", main_runs["dense"]))},
+           "stats": run["stats"], "profile": run["profile"]}
+    emit(rec)
+    return launches
+
+
+def _groups(pairs) -> list:
+    """Connected components (size > 1) of a pair list, sorted, by a plain
+    union-find independent of the service's."""
+    parent: dict = {}
+
+    def find(x):
+        parent.setdefault(x, x)
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for a, b in pairs:
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[max(ra, rb)] = min(ra, rb)
+    comp: dict = {}
+    for x in list(parent):
+        comp.setdefault(find(x), []).append(x)
+    return sorted(sorted(v) for v in comp.values() if len(v) > 1)
+
+
+_PROM_LINE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (\S+)$")
+
+
+def _check_prometheus(text: str) -> int:
+    """Every line of a Prometheus exposition is a ``# TYPE`` line or a
+    sample with a numeric value; returns the number of samples."""
+    n = 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            continue
+        m = _PROM_LINE.match(line)
+        if m is None:
+            raise AssertionError(f"prometheus_text: unparsable line {line!r}")
+        float(m.group(2).replace("Inf", "inf"))
+        n += 1
+    if not n:
+        raise AssertionError("prometheus_text: no samples")
+    return n
+
+
+def _unit_rows(v):
+    return v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-9)
+
+
+def phase_service(dev, requests, smi) -> dict:
+    """``SSSJService(block=64)`` in strict mode (``tile_k`` 64², a raise on
+    any drop) on phase 3's stream in its requests of 4,096, which wraps
+    the ring: its pairs against an engine of the same configuration on
+    ``join_impl="dense"``, its groups against those of the oracle's pairs,
+    its snapshot against ``stats()``; one more window join and the
+    concatenation and merge of its candidate buffers with the self join's
+    timed on the card (CUDA events around back-to-back calls, and the
+    device's own time)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.sssj_join import (
+        concat_candidates,
+        merge_candidates,
+        sssj_join_candidates,
+    )
+    from repro_torch.serving import SSSJService
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    svc = SSSJService(theta=THETA, lam=LAM, dim=D, capacity=CAPACITY,
+                      block=CONSUMER_BLOCK, device=dev)
+    cfg = svc.engine.cfg
+    if cfg.tile_k != CONSUMER_BLOCK ** 2 or not svc.strict:
+        raise AssertionError(f"service not in strict mode: {cfg}")
+    timed, profiled = requests[:-2], requests[-2:]
+
+    def submit_all(reqs):
+        return [p for v, t in reqs for p in svc.submit(v, t)]
+
+    def run():
+        sync(dev)
+        t0 = time.monotonic()
+        pairs = submit_all(timed)
+        sync(dev)
+        seconds = time.monotonic() - t0
+        last, prof = _profile(lambda: submit_all(profiled), dev)
+        return pairs + last, seconds, prof
+
+    (pairs, seconds, prof), launches = _count_launches(run)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+    _expect_launches("service", launches, _n_micro(requests, CONSUMER_BLOCK))
+    # the oracle sees what the service pushed: the rows unit-normalized on
+    # the host
+    oracle = _run_engine(dev, [(_unit_rows(np.asarray(v, np.float32)), t)
+                               for v, t in requests],
+                         n_profiled=0, **{**dataclasses.asdict(cfg), "join_impl": "dense"})
+    got = _pairs_run(pairs)
+    band, score_err = _check_same_emission(got, oracle, "service vs dense")
+    st = svc.engine.stats()
+    for key in ("pairs_dropped", "window_overflow"):
+        if st[key] != oracle["stats"][key]:
+            raise AssertionError(f"service {key}: {st[key]} vs dense {oracle['stats'][key]}")
+    if svc.stats.n_items != N_ITEMS or N_ITEMS <= CAPACITY or not pairs:
+        raise AssertionError(f"service: the ring did not wrap or nothing emitted: {svc.stats}")
+    # groups: the oracle's pairs, with the band pairs as the service drained them
+    got_keys = set(zip(*(x.tolist() for x in got["pairs"][:2])))
+    svc_band = {k for k in band if k in got_keys}
+    want_pairs = [(a, b) for a, b in zip(*(x.tolist() for x in oracle["pairs"][:2]))
+                  if (a, b) not in band] + sorted(svc_band)
+    groups = svc.duplicate_groups()
+    if groups != _groups(want_pairs):
+        raise AssertionError("service: duplicate_groups differ from the oracle's")
+    snap = svc.snapshot()
+    wrong = {k: (snap.get(f"engine/{k}"), v) for k, v in st.items()
+             if snap.get(f"engine/{k}") != v}
+    if wrong:
+        raise AssertionError(f"service snapshot differs from stats(): {wrong}")
+    n_samples = _check_prometheus(svc.prometheus_text())
+
+    # one more micro-batch of the window join on the service's window, and
+    # the merge of its candidates with the self join's, on the device
+    v, t = requests[-1]
+    q = torch.from_numpy(_unit_rows(np.asarray(v[-CONSUMER_BLOCK:], np.float32))).to(dev)
+    tq = torch.from_numpy(np.asarray(t[-CONSUMER_BLOCK:], np.float32) + 1e-3).to(dev)
+    uq = (svc.engine._next_uid
+          + torch.arange(CONSUMER_BLOCK, dtype=torch.int32, device=dev))
+    state, ckw = svc.engine.state, cfg.candidate_kwargs
+
+    def window_join():
+        return sssj_join_candidates(q, state.vecs, tq, state.ts, uq, state.uids,
+                                    summary=state.summary, device=dev, **ckw)
+
+    jw = window_join()
+    js = sssj_join_candidates(q, q, tq, tq, uq, uq, device=dev, **ckw)
+
+    def merge():   # the step's level-2 merge of both joins' candidates
+        return merge_candidates(concat_candidates(jw.cands, js.cands),
+                                max_pairs=cfg.max_pairs)
+
+    cand_bytes = sum(x.numel() * x.element_size() for x in jw.cands)
+    rec = {"phase": "service", "nvidia_smi": smi, "n_items": N_ITEMS,
+           "config": dataclasses.asdict(cfg), "strict": svc.strict,
+           "timed_items": sum(len(v) for v, _ in timed), "seconds": seconds,
+           "items_per_s": sum(len(v) for v, _ in timed) / seconds,
+           "dense_items_per_s": oracle["timed_items"] / oracle["seconds"],
+           "pairs": len(pairs), "dense_pairs": len(oracle["pairs"][0]),
+           "band_pairs": len(band), "max_score_err": score_err,
+           "groups": len(groups), "largest_group": max(map(len, groups)),
+           "trending_3": len(svc.trending(3)),
+           "launches": launches,
+           "launches_per_micro_batch": {k: n / _n_micro(requests, CONSUMER_BLOCK)
+                                        for k, n in launches.items()},
+           "peak_gib": peak_gib, "candidate_buffer_bytes": cand_bytes,
+           "candidate_slots": jw.cands.uid_a.numel(),
+           "window_join_ms": cuda_ms(window_join, 10),
+           "window_join_device_ms": device_ms(window_join, 10),
+           "concat_merge_ms": cuda_ms(merge, 20),
+           "concat_merge_device_ms": device_ms(merge, 20),
+           "prometheus_samples": n_samples, "stats": st,
+           "service_stats": dataclasses.asdict(svc.stats),
+           "profile": prof,
+           "profiled_micro_batches": _n_micro(profiled, CONSUMER_BLOCK)}
+    svc.engine.close()
+    emit(rec)
+    return launches
+
+
+def phase_blocked(dev, requests, main_runs, smi) -> dict:
+    """``BlockedStreamJoiner`` at the main path's 128 x 128 tiles, so
+    ``tile_k`` 128², pushing phase 3's requests and draining each at once:
+    its pairs against phase 3's dense oracle."""
+    from repro_torch.core.blocked import BlockedJoinConfig, BlockedStreamJoiner
+
+    bj = BlockedStreamJoiner(BlockedJoinConfig(theta=THETA, lam=LAM, capacity=CAPACITY,
+                                               d=D), device=dev)
+    if bj.engine.cfg.tile_k != 128 * 128 or bj.engine.cfg.join_impl is not None:
+        raise AssertionError(f"blocked joiner config: {bj.engine.cfg}")
+
+    def run():
+        sync(dev)
+        t0 = time.monotonic()
+        pairs = [p for v, t in requests for p in bj.push(v, t)]
+        sync(dev)
+        return pairs, time.monotonic() - t0
+
+    (pairs, seconds), launches = _count_launches(run)
+    _expect_launches("blocked", launches, _n_micro(requests, MICRO))
+    band, score_err = _check_same_emission(_pairs_run(pairs), main_runs["dense"],
+                                           "blocked vs dense")
+    st = bj.engine.stats()
+    if st["pairs_dropped"] or st["window_overflow"] != main_runs["dense"]["stats"][
+            "window_overflow"] or st["n_items"] != N_ITEMS:
+        raise AssertionError(f"blocked joiner dropped or overflowed: {st}")
+    kst = main_runs["kernel"]["stats"]
+    rec = {"phase": "blocked", "nvidia_smi": smi, "n_items": N_ITEMS,
+           "tile_k": bj.engine.cfg.tile_k, "seconds": seconds,
+           "items_per_s": N_ITEMS / seconds, "pairs": len(pairs),
+           "band_pairs": len(band), "max_score_err": score_err, "launches": launches,
+           "chunks_executed": bj.chunks_executed, "tiles_total": bj.tiles_total,
+           "kernel_route_chunks_executed": kst["chunks_executed"],
+           "kernel_route_tiles_total": kst["tiles_total"], "stats": st}
+    bj.engine.close()
+    emit(rec)
+    return launches
+
+
+def _near_theta_rows(engine, tokens, rows, uid0: int, t: float) -> dict:
+    """For the documents ``rows`` of a batch the filter ``engine`` has just
+    taken (first uid ``uid0``, time ``t``): each one's best exact (f64)
+    decayed score against the older items of the window, where that score
+    lies within ``BAND`` of θ.  A keep decision may differ between two f32
+    joins only on such a row."""
+    import torch
+
+    from repro_torch.data import hashing_embed
+
+    cfg, st = engine.cfg, engine.state
+    # the window rows the decay leaves a chance: exp(-λ Δt) ≥ θ - BAND
+    reach = -math.log(cfg.theta - BAND) / cfg.lam
+    near = torch.nonzero((st.uids >= 0) & ((st.ts.double() - t).abs() <= reach))[:, 0]
+    w = st.vecs[near].double()
+    q = torch.from_numpy(hashing_embed(tokens[rows], cfg.d)).to(w.device, torch.float64)
+    dec = (q @ w.T) * torch.exp(-cfg.lam * (st.ts[near].double() - t).abs())[None, :]
+    older = st.uids[near][None, :] < torch.as_tensor(uid0 + rows, device=w.device)[:, None]
+    best = torch.where(older, dec, -math.inf).amax(1).tolist()
+    return {int(r): b for r, b in zip(rows, best) if abs(b - cfg.theta) <= BAND}
+
+
+def phase_dedup(dev, smi) -> dict:
+    """``TokenPipeline`` with ``DedupFilter(dim=1024, capacity=262144,
+    block=64)`` for ``PIPELINE_STEPS`` steps, so that the filter's ring
+    wraps, in lockstep with the same pipeline whose filter's engine runs
+    ``join_impl="dense"``.  Each step's keep-masks must be equal outside
+    the documents whose best exact score lies within ``BAND`` of θ; on
+    those the oracle's pipeline takes the kernel route's decision, so
+    that both go on with the same documents.  The batches must be equal,
+    and planted duplicates must be dropped.  The batches are compared
+    step by step and not kept (2 GB of tokens each)."""
+    import dataclasses
+
+    from repro_torch.data import DedupFilter, TokenPipeline
+    from repro_torch.engine import StreamEngine
+
+    band = []   # (step, document, best exact score) where the masks differ
+
+    def pipeline(dense: bool, kern_rec=None):
+        filt = DedupFilter(dim=D, capacity=CAPACITY, block=CONSUMER_BLOCK, device=dev)
+        if dense:
+            filt.engine.close()
+            filt.engine = StreamEngine(dataclasses.replace(filt.cfg, join_impl="dense"),
+                                       device=dev)
+        rec = {"masks": [], "filter_s": 0.0, "seconds": 0.0}
+        inner = filt.filter
+
+        def recording(tokens, ts):
+            uid0 = filt.engine._next_uid
+            t0 = time.monotonic()
+            keep = inner(tokens, ts)
+            rec["filter_s"] += time.monotonic() - t0
+            rec["masks"].append(keep.copy())
+            if kern_rec is not None:
+                theirs = kern_rec["masks"][len(rec["masks"]) - 1]
+                rows = np.nonzero(keep != theirs)[0]
+                if rows.size:
+                    near = _near_theta_rows(filt.engine, tokens, rows, uid0, float(ts[0]))
+                    if len(near) < rows.size:
+                        raise AssertionError(
+                            f"dedup step {len(rec['masks']) - 1}: keep-masks differ "
+                            f"outside the ε-band at "
+                            f"{sorted(set(rows.tolist()) - set(near))[:10]}")
+                    band.extend((len(rec["masks"]) - 1, r, b) for r, b in near.items())
+                    keep = theirs.copy()
+            return keep
+
+        filt.filter = recording
+        return TokenPipeline(dedup=filt, seed=SEED, **PIPELINE), rec
+
+    def step(pipe, rec):
+        t0 = time.monotonic()
+        tokens = pipe.next_batch()["tokens"]
+        rec["seconds"] += time.monotonic() - t0
+        return tokens
+
+    kern_pipe, kern = pipeline(False)
+    dense_pipe, dense = pipeline(True, kern)
+    launches = dict.fromkeys(_launch_counters(), 0)
+    for i in range(PIPELINE_STEPS):
+        # the counters are read around the filtered pipeline's step alone
+        tokens, got = _count_launches(lambda: step(kern_pipe, kern))
+        for name, n in got.items():
+            launches[name] += n
+        if not np.array_equal(tokens, step(dense_pipe, dense)):
+            raise AssertionError(f"dedup step {i}: the pipelines' batches differ")
+    n_micro = PIPELINE_STEPS * -(-PIPELINE["batch"] // CONSUMER_BLOCK)
+    _expect_launches("dedup", launches, n_micro)
+    filt = kern_pipe.dedup
+    if not filt.n_seen > CAPACITY:
+        raise AssertionError(f"dedup: {filt.n_seen} documents never wrap the ring")
+    if not filt.n_dropped > 0:
+        raise AssertionError("dedup: no planted duplicate was dropped")
+    filt.engine.close()
+    dense_pipe.dedup.engine.close()
+    docs = PIPELINE_STEPS * PIPELINE["batch"]
+    rec = {"phase": "dedup", "nvidia_smi": smi, "pipeline": PIPELINE,
+           "steps": PIPELINE_STEPS, "documents": docs, "capacity": CAPACITY,
+           "ring_wrapped": True, "dropped": filt.n_dropped,
+           "oracle_dropped": dense_pipe.dedup.n_dropped,
+           "band_documents": [{"step": a, "document": r, "score": b} for a, r, b in band],
+           "dropped_per_step_first": [int((~m).sum()) for m in kern["masks"][:12]],
+           "seconds": kern["seconds"], "docs_per_s": docs / kern["seconds"],
+           "filter_s": kern["filter_s"], "filter_docs_per_s": docs / kern["filter_s"],
+           "dense_docs_per_s": docs / dense["seconds"], "launches": launches}
+    emit(rec)
     return launches
 
 
@@ -1004,6 +1435,43 @@ def phase_flash(dev, smi) -> dict:
     }
 
 
+KERNEL_PHASES = "--kernel-phases"   # the child's flag: phases 2 and 5 only
+
+
+def kernel_phases_child(smi: str) -> int:
+    """Phases 2 and 5 in a process of their own: their phase lines, then
+    one line ``{"kernel_phases": {"kern": …, "flash": …}}`` for the parent."""
+    import torch
+
+    dev = torch.device("cuda")
+    try:
+        kern = phase_kernels(dev)
+        flash = phase_flash(dev, smi)
+    except Exception as exc:  # report the failing phase, then fail
+        emit({"phase": "failed", "error": f"{type(exc).__name__}: {exc}"})
+        raise
+    emit({"kernel_phases": {"kern": kern, "flash": flash}})
+    return 0
+
+
+def run_kernel_phases(smi: str) -> tuple:
+    """Phases 2 and 5 (every kernel against its plain version, timed) in a
+    child process, on the kernels phase 1 built.  A process of their own
+    gives their ``torch.profiler`` traces a profiler no engine phase has
+    used: after the engine and consumer phases' traces, the trace held 6
+    of 20 ``cand_kernel`` launches in each of five tries.  Returns
+    ``(kern, flash)``."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), KERNEL_PHASES,
+                           smi], stdout=subprocess.PIPE, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1] if proc.returncode == 0 else lines:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the kernel phases' process exited with {proc.returncode}")
+    out = json.loads(lines[-1])["kernel_phases"]
+    return out["kern"], out["flash"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1023,6 +1491,8 @@ def main() -> int:
     # scores by ~1e-3, which moves pairs across θ
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if len(sys.argv) == 3 and sys.argv[1] == KERNEL_PHASES:
+        return kernel_phases_child(sys.argv[2])
     try:
         device = phase_device()
         smi = device["smi"]
@@ -1032,10 +1502,16 @@ def main() -> int:
         # more, and the engine's items/s is paced by its host loop
         phase_tile_edge_engine(dev)
         launches, requests, main_runs = phase_main_path(dev)
-        launches["sssj_dense"] = phase_dense_path(
-            dev, requests, main_runs, smi)["sssj_dense"]
-        kern = phase_kernels(dev)
-        flash = phase_flash(dev, smi)
+        by_path = {"main_path": dict(launches)}
+        by_path["dense_path"] = phase_dense_path(dev, requests, main_runs, smi)
+        launches["sssj_dense"] = by_path["dense_path"]["sssj_dense"]
+        by_path["scan_route"] = phase_scan_route(dev, requests, main_runs, smi)
+        by_path["service"] = phase_service(dev, requests, smi)
+        by_path["blocked"] = phase_blocked(dev, requests, main_runs, smi)
+        del main_runs
+        by_path["dedup"] = phase_dedup(dev, smi)
+        torch.cuda.empty_cache()     # the child's phases need the card's memory
+        kern, flash = run_kernel_phases(smi)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": "failed", "error": f"{type(exc).__name__}: {exc}"})
         raise
@@ -1053,6 +1529,9 @@ def main() -> int:
     for row in rows:
         row.update(launches=launches[row["name"]], library_ms=None,
                    **kern[row["name"]])
+        # the same kernel's launches on each path, each read around its run
+        row["launches_by_path"] = {path: counts.get(row["name"], 0)
+                                   for path, counts in by_path.items()}
         if row["name"] in device["ptxas_joins"]:
             row["ptxas_full_128"] = device["ptxas_joins"][row["name"]]
     rows[1]["ptxas"] = device["ptxas_gate"]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernels in two checkouts in turns, on one GPU.
 
-    python3 chip_turns.py A_ROOT B_ROOT [--out FILE]
+    python3 chip_turns.py A_ROOT B_ROOT [--out FILE] [--edge-engine]
 
 Runs A, B, B, A, each in a process of its own (``--worker ROOT``) that
 imports ``ROOT/src/repro_torch`` (whose kernels build into ``ROOT/build``),
@@ -22,6 +22,17 @@ its wrapper's host time is still judged on the device:
 * flash attention in f32 and bf16 at qwen3-0.6b's heads (B 1, H 16,
   Hkv 8, S 4096, Dh 128), qwen2.5-3b's (H 16, Hkv 2, S 2048) and
   qwen3-0.6b's at Dh 64 and 32, causal.
+
+With ``--edge-engine`` each run instead drives the engine at the
+consumers' 64 x 64 tiles (``chip_smoke.py``'s ``tile_edge_engine`` phase
+configuration: capacity 65,536, d 256, 81,920 items): items/s of the
+kernel route (key ``engine_64``) and of its ``join_impl="dense"`` oracle
+(``engine_64 dense``), the kernel route's profiled tail per micro-batch
+(``engine_64 launches``, ``engine_64 device_ms``, ``engine_64 wall_ms``),
+and the gate bound alone at the engine's shapes (64 query rows, 1,024
+strips of 64 x 256), through its wrapper and on the device
+(``gate_ub_64``), with the gate step whole (``strip_gate_64 device``:
+every device op of ``strip_gate``).
 
 Prints the card's name and power limit, one JSON line per run, and a
 summary line with each time's mean in A and in B and their ratio B / A;
@@ -113,7 +124,41 @@ def _flash_times(dev, reps: int) -> dict:
     return out
 
 
-def worker(root: str) -> dict:
+def _edge_engine_times(dev, reps: int) -> dict:
+    """The engine at 64 x 64 tiles and its gate bound (``--edge-engine``)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.sssj_join import gate as gate_mod
+
+    cfg = cs.EDGE_CFGS[0]
+    edge, d, chunk = cfg["block_q"], cfg["d"], cfg["chunk_d"]
+    requests = cs._requests(cs.EDGE_ITEMS, d)
+    dense = cs._run_engine(dev, requests, n_profiled=0, join_impl="dense", **cfg)
+    kern = cs._run_engine(dev, requests, n_profiled=2, **cfg)
+    n_micro = sum(-(-len(v) // cfg["micro_batch"]) for v, _ in requests[-2:])
+    prof = kern["profile"]
+    out = {"engine_64": kern["timed_items"] / kern["seconds"],
+           "engine_64 dense": dense["timed_items"] / dense["seconds"],
+           "engine_64 launches": prof["device_launches"] / n_micro,
+           "engine_64 device_ms": prof["device_busy_ms"] / n_micro,
+           "engine_64 wall_ms": prof["wall_ms"] / n_micro}
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    w, tw, uw = cs._window(gen, cfg["capacity"], d, 400.0, dev)
+    q, tq, uq = cs._queries(gen, w, tw, uw, edge, edge // 8, dev)
+    summary = gate_mod.summarize_strips(w, tw, uw, block_w=edge, chunk_d=chunk)
+    qa, qcn = q.abs(), gate_mod.chunk_norms(q, chunk)
+    call = lambda: gate_mod.gate_ub(qa, qcn, summary.vmax, summary.cnorm,  # noqa: E731
+                                    block_q=edge)
+    step = lambda: gate_mod.strip_gate(  # noqa: E731
+        q, summary, block_q=edge, chunk_d=chunk, tq_lo=tq.min(), tq_hi=tq.max(),
+        th_min=cs.THETA, lam_min=cfg["lam"], device=dev)
+    out["gate_ub_64"] = cs.cuda_ms(call, reps)
+    out["gate_ub_64 device"] = cs.device_ms(call, reps, "::gate_ub")
+    out["strip_gate_64 device"] = cs.device_ms(step, reps)
+    return out
+
+
+def worker(root: str, edge_engine: bool = False) -> dict:
     sys.path.insert(0, str(Path(root).resolve() / "src"))
     sys.path.insert(1, str(HERE))
     import torch
@@ -124,6 +169,9 @@ def worker(root: str) -> dict:
     built = _build.build()
     build_s = time.monotonic() - t0
     dev = torch.device("cuda")
+    if edge_engine:
+        return {"root": root, "build_s": build_s, "times": _edge_engine_times(dev, 50),
+                "ptxas": {}}
     times = _join_times(dev, 128, 20)
     try:
         times.update(_join_times(dev, 256, 5))
@@ -138,8 +186,10 @@ def worker(root: str) -> dict:
 
 
 def main(argv) -> int:
+    edge_engine = "--edge-engine" in argv
+    argv = [a for a in argv if a != "--edge-engine"]
     if len(argv) >= 2 and argv[0] == "--worker":
-        print(json.dumps(worker(argv[1])), flush=True)
+        print(json.dumps(worker(argv[1], edge_engine)), flush=True)
         return 0
     if len(argv) not in (2, 4) or (len(argv) == 4 and argv[2] != "--out"):
         print(__doc__, file=sys.stderr)
@@ -152,7 +202,8 @@ def main(argv) -> int:
     print(smi, flush=True)
     runs = []
     for root in (a, b, b, a):
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", root],
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", root]
+                              + ["--edge-engine"] * edge_engine,
                               capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
@@ -163,7 +214,7 @@ def main(argv) -> int:
     summary = {}
     for key in dict.fromkeys(k for r in runs for k in r["times"]):
         pair = [[r["times"].get(key) for r in runs if r["root"] == x] for x in (a, b)]
-        if all(isinstance(t, float) for t in pair[0] + pair[1]):
+        if all(isinstance(t, float) for t in pair[0] + pair[1]) and sum(pair[0]):
             ma, mb = (sum(t) / len(t) for t in pair)
             summary[key] = {"a": pair[0], "b": pair[1], "b_over_a": mb / ma}
         else:

@@ -71,11 +71,11 @@ class EngineConfig:
     block_w: int = 128
     chunk_d: int = 128
     emit_dense: bool = False     # dense-matrix compaction (oracle path)
-    join_impl: Optional[str] = None  # None = kernel path, "dense" = oracle
+    join_impl: Optional[str] = None  # None = kernel path, "scan", "dense" = oracle
     use_ref: bool = False        # route joins through the dense reference
     eviction: str = "oldest"     # write-slot policy; only "oldest" is ported
     l2_gate: Optional[bool] = None  # strip gate: True/False, None = auto
-    #   (on for the kernel path, where it can skip launches)
+    #   (on for the kernel path and the scan, where it can skip strips)
 
     def __post_init__(self) -> None:
         """Reject configurations that would only fail later, deep inside
@@ -101,13 +101,9 @@ class EngineConfig:
                 f"use_ref routes joins through the dense reference and "
                 f"contradicts join_impl={self.join_impl!r}; drop one"
             )
-        if self.join_impl == "scan":
-            raise NotImplementedError(
-                "join_impl='scan' is not ported yet (ROADMAP queue 1, item 1)"
-            )
-        if self.join_impl not in (None, "dense"):
+        if self.join_impl not in (None, "scan", "dense"):
             raise ValueError(
-                f"join_impl must be None (kernel path) or 'dense', "
+                f"join_impl must be None (kernel path), 'scan' or 'dense', "
                 f"got {self.join_impl!r}"
             )
         if self.l2_gate is True and (
@@ -126,7 +122,8 @@ class EngineConfig:
         if self.eviction != "oldest":
             raise NotImplementedError(
                 f"eviction={self.eviction!r} is not ported yet; it comes "
-                f"with the multi-tenant runtime (ROADMAP queue 1, item 7)"
+                f"with the multi-tenant runtime (ROADMAP queue 1, "
+                f"\"Multi-tenant runtime\")"
             )
 
     @property

@@ -40,7 +40,7 @@ EMPTY_T = 3.0e30
 EVICTION_POLICIES = ("oldest", "dead", "quota")
 _NOT_PORTED = (
     "eviction={!r} is not ported yet; it comes with the multi-tenant "
-    "runtime (ROADMAP queue 1, item 7)"
+    "runtime (ROADMAP queue 1, \"Multi-tenant runtime\")"
 )
 
 
@@ -165,8 +165,9 @@ def window_from_numpy(src, *, device: DeviceLike = None) -> WindowState:
     for lane in ("lane_cursor", "lane_overflow"):
         if getattr(src, lane, None) is not None:
             raise NotImplementedError(
-                f"{lane} belongs to the multi-tenant window (ROADMAP queue 1, "
-                f"item 7)"
+                f"{lane} belongs to the multi-tenant window, which comes with "
+                f"the multi-tenant runtime (ROADMAP queue 1, \"Multi-tenant "
+                f"runtime\")"
             )
 
     def t(x, dtype):

@@ -6,11 +6,15 @@ Counterpart of ``repro.kernels.sssj_join.ops``.  Two join surfaces:
     score matrix plus per-tile ``iters`` and counts, from the dense tile
     join (or, with ``use_ref``, the dense reference).  It serves the
     engine's ``emit_dense`` oracle path.
-  * :func:`sssj_join_candidates` — hierarchical emission.  Two
+  * :func:`sssj_join_candidates` — hierarchical emission.  Three
     implementations give identical candidate buffers:
 
       - ``impl=None`` — the kernel path (counterpart of ``"pallas"``): the
         strip gate and the tile join with in-kernel select;
+      - ``"scan"`` — the strip walk: batched ``(Qp, n·block_w)`` products
+        over the window strips the walk visits, each strip's candidates
+        selected by :func:`~.compact.tile_candidates`; no ``(Q, W)``
+        matrix;
       - ``"dense"`` — the oracle: full ``(Q, W)`` reference scores, then
         :func:`~.compact.tile_candidates`.
 
@@ -60,6 +64,11 @@ def _pad_rows(x: torch.Tensor, mult: int, fill=0) -> torch.Tensor:
     if pad == 0:
         return x
     return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+
+
+def _col(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A per-row lane ``(n,)`` as the ``(n, 1)`` column ``sssj_join_ref`` takes."""
+    return None if x is None else x[:, None]
 
 
 def _lane(x, dtype, dev) -> Optional[torch.Tensor]:
@@ -186,17 +195,14 @@ def sssj_join_candidates(
 
     Inputs (arrays or tensors) are moved to ``device`` (``None`` = CUDA).
     ``tile_k`` caps the candidates one tile keeps (overflow is counted in
-    ``cands.emitted - cands.kept``).  ``impl`` is ``None`` (kernel path) or
-    ``"dense"``.  Stream lanes ``sq/sw`` and per-row ``theta_q/lam_q``
+    ``cands.emitted - cands.kept``).  ``impl`` is ``None`` (kernel path),
+    ``"scan"`` or ``"dense"``; unlike the reference, ``None`` always means
+    the kernel path.  Stream lanes ``sq/sw`` and per-row ``theta_q/lam_q``
     follow the reference.  ``summary`` (the window's strip aggregates)
-    turns on the pre-launch gate for the kernel path; the dense oracle
-    ignores it.  Gating never changes the emitted candidates.
+    turns on the pre-launch gate for the kernel path and the scan; the
+    dense oracle ignores it.  Gating never changes the emitted candidates.
     """
-    if impl == "scan":
-        raise NotImplementedError(
-            "impl='scan' is not ported yet (ROADMAP queue 1, item 1)"
-        )
-    if impl not in (None, "dense"):
+    if impl not in (None, "scan", "dense"):
         raise ValueError(f"unknown sssj_join_candidates impl {impl!r}")
     if (theta_q is None) != (lam_q is None):
         raise ValueError("theta_q and lam_q must be passed together")
@@ -224,17 +230,18 @@ def sssj_join_candidates(
 
     Q, d = q.shape
     W = w.shape[0]
-    # sub-block inputs take the dense oracle (a launch would be all padding)
-    if Q < block_q or W < block_w or d < chunk_d:
+    # sub-block inputs take the dense oracle (a launch would be all
+    # padding); d < chunk_d only matters to the kernel's d-chunking, the
+    # scan does not chunk d
+    if Q < block_q or W < block_w or (d < chunk_d and impl != "scan"):
         impl = "dense"
     n_chunks = max(d // chunk_d, 1)
 
     if impl == "dense":
-        col = lambda x: None if x is None else x[:, None]  # noqa: E731
         scores = sssj_join_ref(
-            q, w, tq[:, None], tw[:, None], uq[:, None], uw[:, None],
-            theta=theta, lam=lam, sq=col(sq), sw=col(sw),
-            theta_q=col(theta_q), lam_q=col(lam_q),
+            q, w, _col(tq), _col(tw), _col(uq), _col(uw),
+            theta=theta, lam=lam, sq=_col(sq), sw=_col(sw),
+            theta_q=_col(theta_q), lam_q=_col(lam_q),
         )
         cands, row_mask = tile_candidates(
             scores, uq, uw, block_q=block_q, block_w=block_w, tile_k=tile_k
@@ -269,6 +276,15 @@ def sssj_join_candidates(
             tq_hi=tq_hi, th_min=th_min, lam_min=lam_min, device=dev,
         )
 
+    if impl == "scan":
+        cands, row_mask, iters = _scan_candidates(
+            qp, wp, tqp, twp, uqp, uwp, sqp, swp, thp, lmp, gate,
+            theta=theta, lam=lam, th_min=th_min, lam_min=lam_min,
+            tq_lo=tq_lo, tq_hi=tq_hi, tile_k=tile_k, block_q=block_q,
+            block_w=block_w, chunk_d=chunk_d,
+        )
+        return JoinCandidates(cands, row_mask[:Q], iters, gate_stats)
+
     cand_idx, cand_score, emitted, row_hits, iters = (
         sssj_join_candidates_kernel_call(
             qp, wp, tqp[:, None], twp[:, None], uqp[:, None], uwp[:, None],
@@ -287,3 +303,91 @@ def sssj_join_candidates(
     )
     row_mask = (row_hits > 0).any(1).reshape(-1)[:Q]
     return JoinCandidates(cands, row_mask, iters, gate_stats)
+
+
+# score entries one batched product of the scan holds at most (64 MB f32)
+SCAN_SCORES = 1 << 24
+
+
+def _scan_candidates(qp, wp, tqp, twp, uqp, uwp, sqp, swp, thp, lmp, gate, *,
+                     theta, lam, th_min, lam_min, tq_lo, tq_hi, tile_k,
+                     block_q, block_w, chunk_d):
+    """The ``"scan"`` impl on padded inputs: ``(cands, row_mask (Qp,),
+    iters (nq, nw))``.
+
+    The reference walks the window one ``(Qp, block_w)`` strip at a time,
+    newest first from the strip holding the max uid, over the ``n_live``
+    strips that cover every strip alive by the time bound (ungated; each
+    strip of the walk is scored) or by ``gate.any(0)`` (gated; only those
+    are scored).  Here the walk is one or two contiguous ranges of the
+    ring, scored by ``sssj_join_ref`` in batched products of up to
+    ``SCAN_SCORES`` entries; a strip the reference does not score
+    (gate-killed inside a range, or the only strip when ``n_live`` is 0)
+    has its scores masked to 0, which gives exactly the unscored strip's
+    buffers (uid -1, score 0, kept = emitted = 0).  The reference keeps
+    the walk's cursor-anchored shape because a compacted visit list
+    miscompiles under JAX's ``shard_map``; that concern is JAX's and does
+    not bind this port.  ``iters`` is the scan's own telemetry: ``n_chunks`` for a live strip (gated: a live
+    tile), 0 otherwise.  Reading ``n_live`` and the newest strip costs
+    one host sync, except for a one-strip window (the self join), whose
+    walk is decided on the device.
+    """
+    Qp, d = qp.shape
+    nq, nw = Qp // block_q, wp.shape[0] // block_w
+    n_chunks = d // chunk_d
+    dev = qp.device
+    uw_max = uwp.reshape(nw, block_w).amax(1)
+    newest = torch.argmax(uw_max)
+    dist = (newest - torch.arange(nw, device=dev)) % nw
+    if gate is None:
+        # strip time bound: unit vectors, so score ≤ exp(-λ_min Δt_lb);
+        # empty slots carry t = +3e30, so an empty strip is dead
+        tw_tiles = twp.reshape(nw, block_w)
+        dt_lb = torch.clamp(torch.maximum(tq_lo - tw_tiles.amax(1),
+                                          tw_tiles.amin(1) - tq_hi), min=0.0)
+        alive_walk = (torch.exp(-lam_min * dt_lb) >= th_min) & (uw_max >= 0)
+        iters = torch.where(alive_walk, n_chunks, 0).int()[None, :].repeat(nq, 1)
+    else:
+        alive_walk = gate.any(0)
+        iters = torch.where(gate, n_chunks, 0).int()
+    n_live = torch.where(alive_walk, dist + 1, 0).max()
+    # the strips the reference scores: every strip of the walk (ungated),
+    # or its gate survivors
+    scored = (dist < n_live) if gate is None else alive_walk
+    if nw == 1:
+        newest, n_live = 0, 1
+    else:
+        newest, n_live = torch.stack([newest, n_live]).tolist()
+
+    cands = PairCandidates(
+        uid_a=torch.full((nq, nw, tile_k), -1, dtype=torch.int32, device=dev),
+        uid_b=torch.full((nq, nw, tile_k), -1, dtype=torch.int32, device=dev),
+        score=torch.zeros((nq, nw, tile_k), dtype=torch.float32, device=dev),
+        kept=torch.zeros((nq, nw), dtype=torch.int32, device=dev),
+        emitted=torch.zeros((nq, nw), dtype=torch.int32, device=dev),
+    )
+    row_mask = torch.zeros(Qp, dtype=torch.bool, device=dev)
+    # the walk: strips newest - n_live + 1 … newest, modulo nw
+    lo = newest - n_live + 1
+    spans = [(max(lo, 0), newest + 1)] + ([(nw + lo, nw)] if lo < 0 else [])
+    step = max(1, SCAN_SCORES // (Qp * block_w))
+    for a, b in spans:
+        for s0 in range(a, b, step):
+            s1 = min(s0 + step, b)
+            cols = slice(s0 * block_w, s1 * block_w)
+            dec = sssj_join_ref(                            # (Qp, n·block_w)
+                qp, wp[cols], _col(tqp), _col(twp[cols]), _col(uqp),
+                _col(uwp[cols]), theta=theta, lam=lam, sq=_col(sqp),
+                sw=None if swp is None else _col(swp[cols]),
+                theta_q=_col(thp), lam_q=_col(lmp),
+            )
+            dec = torch.where(scored[s0:s1].repeat_interleave(block_w)[None, :],
+                              dec, 0.0)
+            got, rm = tile_candidates(dec, uqp, uwp[cols], block_q=block_q,
+                                      block_w=block_w, tile_k=tile_k)
+            for out, x in zip(cands, got):
+                out[:, s0:s1] = x.reshape((nq, s1 - s0) + tuple(x.shape[1:]))
+            row_mask |= rm
+    flat = PairCandidates(*(x.reshape((nq * nw,) + tuple(x.shape[2:]))
+                            for x in cands))
+    return flat, row_mask, iters

@@ -220,7 +220,7 @@ def test_metric_names_follow_pinned_schema():
         (dict(block_w=0), ValueError),
         (dict(join_impl="bogus"), ValueError),
         (dict(join_impl="dense", l2_gate=True), ValueError),
-        (dict(join_impl="scan"), NotImplementedError),
+        (dict(join_impl="pallas"), ValueError),
         (dict(emit_dense=True, l2_gate=True), ValueError),
         (dict(use_ref=True, l2_gate=True), ValueError),
         (dict(eviction="dead"), NotImplementedError),

@@ -24,7 +24,9 @@ import torch
 from repro.core.similarity import time_horizon as j_time_horizon
 from repro.data import synth as jsynth
 from repro.obs import MetricsRegistry as JRegistry
+from repro_torch.core.blocked import BlockedJoinConfig, BlockedStreamJoiner
 from repro_torch.core.similarity import time_horizon
+from repro_torch.data import DedupFilter
 from repro_torch.data import synth as tsynth
 from repro_torch.engine import EngineConfig, StreamEngine
 from repro_torch.kernels import _build
@@ -33,6 +35,7 @@ from repro_torch.kernels.sssj_join import gate as tgate
 from repro_torch.kernels.sssj_join import kernel as tkernel
 from repro_torch.kernels.sssj_join import ops as tops
 from repro_torch.obs import MetricsRegistry
+from repro_torch.serving import SSSJService
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORT = os.path.join(_ROOT, "src", "repro_torch")
@@ -58,7 +61,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch, repro_torch.core, repro_torch.obs, repro_torch.data\n"
         "import repro_torch.kernels.sssj_join, repro_torch.kernels._build\n"
         "import repro_torch.kernels, repro_torch.kernels.flash_attention\n"
-        "import repro_torch.engine\n"
+        "import repro_torch.engine, repro_torch.serving, repro_torch.core.blocked\n"
+        "import repro_torch.data.pipeline, repro_torch.obs.spans, repro_torch.obs.bridge\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -82,7 +86,8 @@ def test_no_jax_or_repro_import_statement(path):
 def test_port_sources_found():
     names = {os.path.basename(p) for p in _port_sources()}
     assert {"engine.py", "window.py", "kernel.py", "gate.py", "ops.py",
-            "chip_smoke.py", "chip_turns.py"} <= names
+            "chip_smoke.py", "chip_turns.py", "service.py", "blocked.py",
+            "pipeline.py", "spans.py", "bridge.py", "registry.py"} <= names
 
 
 def _no_gpu(monkeypatch):
@@ -95,6 +100,18 @@ def test_engine_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StreamEngine(cfg)
     StreamEngine(cfg, device="cpu").close()    # the explicit CPU path works
+
+
+@pytest.mark.parametrize("make", [
+    lambda: SSSJService(theta=0.9, lam=0.1, dim=8, capacity=64, block=8),
+    lambda: BlockedStreamJoiner(BlockedJoinConfig(theta=0.9, lam=0.1, capacity=64,
+                                                  d=8, block_q=8, block_w=8)),
+    lambda: DedupFilter(dim=8, capacity=64, block=8),
+], ids=["SSSJService", "BlockedStreamJoiner", "DedupFilter"])
+def test_consumers_default_to_cuda_and_raise_without_gpu(monkeypatch, make):
+    _no_gpu(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
 
 
 def test_join_defaults_to_cuda_and_raises_without_gpu(monkeypatch):

@@ -372,12 +372,20 @@ def test_suffix_chunk_norms_matches_reference(d, chunk):
 
 
 def test_join_rejects_unported_impl():
-    x = np.zeros((4, 8), np.float32)
+    """``"pallas"`` names no route of the port; ``"scan"`` runs, and on
+    sub-block inputs it takes the dense path, as in the reference."""
+    rng = np.random.default_rng(4)
+    x = _unit(rng, 4, 8)
+    x[3] = x[0]                              # one pair to emit
     t = np.zeros(4, np.float32)
     u = np.arange(4, dtype=np.int32)
-    with pytest.raises(NotImplementedError):
-        tops.sssj_join_candidates(x, x, t, t, u, u, theta=0.9, lam=0.1,
-                                  impl="scan", device=CPU)
+    kw = dict(theta=0.9, lam=0.1, device=CPU)
+    scan = tops.sssj_join_candidates(x, x, t, t, u, u, impl="scan", **kw)
+    dense = tops.sssj_join_candidates(x, x, t, t, u, u, impl="dense", **kw)
+    for a, b in zip((*scan.cands, scan.row_mask, scan.iters, scan.gate_stats),
+                    (*dense.cands, dense.row_mask, dense.iters, dense.gate_stats)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert int(scan.cands.emitted.sum()) == 1
     with pytest.raises(ValueError):
         tops.sssj_join_candidates(x, x, t, t, u, u, theta=0.9, lam=0.1,
                                   impl="pallas", device=CPU)

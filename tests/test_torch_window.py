@@ -12,6 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.engine import window as jwin
+from repro_torch.engine import EngineConfig
 from repro_torch.engine import window as twin
 
 CPU = "cpu"
@@ -84,6 +85,12 @@ def test_oldest_push_matches_reference_through_wrap(cap, b, summary):
 def test_unported_policies_raise(eviction):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         twin.init_window(16, 8, eviction=eviction, device=CPU)
+    # the messages name the roadmap item by its title
+    with pytest.raises(NotImplementedError, match="multi-tenant runtime"):
+        twin.init_window(16, 8, eviction=eviction, device=CPU)
+    with pytest.raises(NotImplementedError, match="multi-tenant runtime"):
+        EngineConfig(theta=0.9, lam=0.1, capacity=16, d=8, micro_batch=8,
+                     eviction=eviction)
 
 
 def test_unknown_policy_rejected():
