@@ -41,6 +41,18 @@ kernel timings, see ``main``):
       keep-masks against the same pipeline's whose filter runs
       ``join_impl="dense"`` (equal outside documents whose exact best
       score lies within ``BAND`` of θ);
+   e. ``MultiTenantRuntime`` at ``capacity=262144, d=1024`` with 64
+      tenants (a non-uniform (θ, λ) table, quota eviction, tenants 0 and 6
+      identical streams), each tenant's pairs, masks and overflow against
+      a ``join_impl="dense"`` runtime, then the kernel route under
+      ``dead`` and ``oldest`` eviction against the quota run;
+      admission→emission latency;
+   f. quota isolation at d 1024: a bursty tenant beside 7 slow ones,
+      slow tenants' pairs equal to the exact truth under ``quota`` and
+      lost under ``oldest``;
+   g. ``MultiTenantSSSJService(micro_batch=256)`` (256 x 256 tiles, so
+      ``cand_big_kernel``), its groups against a dense-oracle runtime's
+      and its snapshot's names against ``tests/metrics_schema.json``;
 5. flash attention through ``repro_torch.kernels.flash_attention`` at
    the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
    qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
@@ -54,7 +66,7 @@ kernel timings, see ``main``):
 6. the ``kernels`` line: launches, error, times (``ms`` and
    ``device_ms``, the plain version's and the library call's beside) and
    bound of each kernel, the launches counted over the run of its own
-   path, and over each path of phases 3-4 (``launches_by_path``);
+   path, and over each path of phases 3-4g (``launches_by_path``);
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of the JAX package, and exits non-zero without a result
@@ -63,6 +75,7 @@ when there is no GPU or when ``src/repro_torch`` is not beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -418,9 +431,13 @@ def phase_kernels(dev) -> dict:
     sid_w = torch.randint(0, 3, (CAPACITY,), generator=gen, device=dev, dtype=torch.int32)
     th_q = 0.85 + 0.1 * torch.rand((MICRO,), generator=gen, device=dev)
     lam_q = LAM * (0.5 + torch.rand((MICRO,), generator=gen, device=dev))
-    run_case("multi_tenant", main_args,
-             dict(base, sq=col(sid_q), sw=col(sid_w), theta_q=col(th_q),
-                  lam_q=col(lam_q)), reps=0)
+    # gated as the runtime gates it: by the rows' smallest θ and λ
+    gate_mt, _ = strip_gate(q, summary, block_q=blk, chunk_d=chunk, tq_lo=tq.min(),
+                            tq_hi=tq.max(), th_min=th_q.min(), lam_min=lam_q.min(),
+                            device=dev)
+    mt = run_case("multi_tenant", main_args,
+                  dict(base, gate=gate_mt.int(), sq=col(sid_q), sw=col(sid_w), theta_q=col(th_q),
+                       lam_q=col(lam_q)), reps=20)
     # the two ends of the tile population at the main path's shapes: every
     # tile gated off (the grid and the dead tiles alone), and every tile
     # live (gate all ones over the window squeezed into 2.6 time units, so
@@ -528,7 +545,10 @@ def phase_kernels(dev) -> dict:
                       "ms_all_dead": dead["ms"], "ms_all_live": live["ms"],
                       "device_ms_all_dead": dead["device_ms"],
                       "device_ms_all_live": live["device_ms"],
-                      "all_live": join_bounds(live["chunks_run"], False)},
+                      "all_live": join_bounds(live["chunks_run"], False),
+                      # all four lanes (stream ids, per-row θ and λ), gated
+                      "multi_tenant": {k: mt[k] for k in TIMES + ("chunks_run",)},
+                      "multi_tenant_bound": join_bounds(mt["chunks_run"], False)},
         "gate_ub": {"max_abs_err": ub_err, **g_times, "bound_ms": g_bound, "bound_by": g_by,
                     "bound_3xtf32_ms": bound_ms(g_bytes, 3 * g_flops, PEAK_TF32_FLOPS)[0]},
         "sssj_dense": {"max_abs_err": max(c["max_abs_err"] for c in dense_cases.values()),
@@ -680,6 +700,10 @@ def _requests(n_items: int, d: int = D):
     return out
 
 
+PORT_KERNELS = ("cand_kernel", "cand_big_kernel", "gate_ub_products", "gate_ub_reduce",
+                "dense_kernel", "dense_big_kernel")
+
+
 def _profile(push_all, dev):
     """Device time by kernel and the device's busy share over one window
     of pushes, from ``torch.profiler`` (its own overhead makes the host
@@ -699,10 +723,21 @@ def _profile(push_all, dev):
                if e.device_type == torch.autograd.DeviceType.CUDA and _dev_us(e) > 0]
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_dev_us, reverse=True)[:10]
+    # the port's own kernels by bare name: mean device ms a launch
+    named = {}
+    for e in kernels:
+        m = re.search(r"::(\w+)[<(]", e.key)
+        if m and m.group(1) in PORT_KERNELS:
+            rec = named.setdefault(m.group(1), {"device_ms_total": 0.0, "calls": 0})
+            rec["device_ms_total"] += _dev_us(e) / 1e3
+            rec["calls"] += e.count
+    for rec in named.values():
+        rec["device_ms_per_call"] = rec["device_ms_total"] / rec["calls"]
     return out, {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms if wall_ms else None,
         "device_launches": sum(e.count for e in kernels),
+        "port_kernels": named,
         "top": [{"name": e.key[:90], "ms": _dev_us(e) / 1e3, "calls": e.count}
                 for e in top],
     }
@@ -744,21 +779,21 @@ def _run_engine(dev, requests, n_profiled=2, **kw):
         eng.close()
 
 
-def _check_same_emission(a, b, label):
+def _check_same_emission(a, b, label, theta=THETA):
     """Two engine runs over one stream drained the same pairs: every
     pair finite, ≥ θ and newer-first; the pair sets equal outside the
     ε-band around θ; common scores within ``FLOAT_TOL``; row masks (where
     both runs drained them) equal outside the rows of band pairs.  Returns
     ``(band pairs, max score error)``."""
     for ua, ub, sc in (a["pairs"], b["pairs"]):
-        if not (np.isfinite(sc).all() and (sc >= np.float32(THETA)).all()
+        if not (np.isfinite(sc).all() and (sc >= np.float32(theta)).all()
                 and (ua > ub).all() and (ub >= 0).all()):
             raise AssertionError(f"{label}: emitted pairs are not finite, ≥ θ, newer-first")
     ap, bp = ({(x, y): s for x, y, s in zip(*(v.tolist() for v in r["pairs"]))}
               for r in (a, b))
     differ = ap.keys() ^ bp.keys()
     band = {k: {**ap, **bp}[k] for k in differ}
-    outside = {k: s for k, s in band.items() if abs(s - THETA) > BAND}
+    outside = {k: s for k, s in band.items() if abs(s - theta) > BAND}
     if outside:
         raise AssertionError(f"{label}: pair sets differ outside the ε-band: "
                              f"{list(outside.items())[:5]}")
@@ -1275,6 +1310,504 @@ def phase_dedup(dev, smi) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phases 4e-4g: the multi-tenant runtime and service
+# --------------------------------------------------------------------- #
+# 64 tenants: θ cycles over (0.9, 0.95), λ over (1e-3, 2e-3, 4e-3), so the
+# table is not uniform and tenant 6 repeats tenant 0's (θ, λ); each tenant
+# streams at 1/64 of the main path's rate, so together they make its rate
+MT_TENANTS = 64
+MT_THETAS = tuple((0.9, 0.95)[k % 2] for k in range(MT_TENANTS))
+MT_LAMS = tuple((1e-3, 2e-3, 4e-3)[k % 3] for k in range(MT_TENANTS))
+MT_PER_TENANT = 5120
+MT_TWIN = (0, 6)           # tenant 6 streams tenant 0's seed: identical items
+MT_SPAN = 4
+MT_FLUSH_ROWS = 512        # flush() every 512 admitted items
+MT_DRAIN_FLUSHES = 8       # drain_by_tenant() every 8 flushes
+MT_PROFILED_FLUSHES = 16   # the profiled tail
+# quota isolation: one bursty tenant (θ 0.9, λ 2, 64 slots, fewer than a
+# micro-batch) beside 7 slow ones (θ 0.8, λ 0.002, τ ≈ 112) that repost
+# once every 60 time units: consecutive reposts pair at ≈ 0.886, the
+# next-but-one at ≈ 0.786
+ISO_THETAS = (0.9,) + (0.8,) * 7
+ISO_LAMS = (2.0,) + (0.002,) * 7
+ISO_QUOTAS = (64,) + (2330,) * 6 + (2340,)
+ISO_CAPACITY = 16384
+ISO_TRAFFIC = dict(n_slow=7, rounds=6, burst=17000, d=D, repost_gap=60.0)
+# the multi-tenant service at 256-wide tiles: the first items of 4e's stream
+# (a quarter of it keeps the script's time in bounds; each tenant's 1,024
+# items still fill 4 strips of its sub-ring)
+SVC_MT_MICRO = 256
+SVC_MT_ITEMS = 65536
+
+
+def _mt_stream():
+    """Phase 4e's traffic: tenant k's ``dense_embedding_stream(5120, 1024,
+    seed=k, rate=1000/64)`` (tenant 6 with tenant 0's seed), merged by
+    timestamp (ties by tenant).  Returns ``(vecs (n, d), ts (n,), tenant
+    (n,))`` in merged order."""
+    from repro_torch.data import dense_embedding_stream
+
+    vs, ts, ks = [], [], []
+    for k in range(MT_TENANTS):
+        seed = MT_TWIN[0] if k == MT_TWIN[1] else k
+        v, t = dense_embedding_stream(MT_PER_TENANT, D, seed=seed,
+                                      rate=RATE / MT_TENANTS)
+        vs.append(v)
+        ts.append(t)
+        ks.append(np.full(MT_PER_TENANT, k, np.int32))
+    t_all, k_all = np.concatenate(ts), np.concatenate(ks)
+    order = np.lexsort((k_all, t_all))
+    return np.concatenate(vs)[order], t_all[order], k_all[order]
+
+
+def _submits(vecs, ts, tenant):
+    """One ``submit`` per run of one tenant's consecutive items."""
+    cut = np.flatnonzero(np.diff(tenant)) + 1
+    bounds = zip(np.concatenate([[0], cut]), np.concatenate([cut, [len(tenant)]]))
+    return [(int(tenant[a]), vecs[a:b], ts[a:b]) for a, b in bounds]
+
+
+def _flush_groups(submits, flush_rows: int) -> list:
+    """The submits between two flushes: a flush follows the submit that
+    brings the items admitted since the last flush to ``flush_rows``."""
+    groups, start, rows = [], 0, 0
+    for i, (_, v, _) in enumerate(submits):
+        rows += len(v)
+        if rows >= flush_rows:
+            groups.append(submits[start:i + 1])
+            start, rows = i + 1, 0
+    if start < len(submits):
+        groups.append(submits[start:])
+    return groups
+
+
+def _run_runtime(dev, rt, submits, n_profiled=MT_PROFILED_FLUSHES,
+                 flush_rows=MT_FLUSH_ROWS, drain_flushes=MT_DRAIN_FLUSHES):
+    """Drive ``rt``: ``flush()`` whenever ``flush_rows`` more items were
+    admitted, ``drain_by_tenant(return_masks=True)`` every ``drain_flushes``
+    flushes, ``flush(final=True)`` and a drain at the end.  All but the
+    last ``n_profiled`` flushes are timed (host clock, ending in a device
+    sync), those under the profiler.  Returns each tenant's drained
+    ``(uid_a, uid_b, score, mask)``, the times and ``stats()``."""
+    import torch
+
+    n_t = rt.table.n_tenants
+    got = {k: [] for k in range(n_t)}
+    groups = _flush_groups(submits, flush_rows)
+
+    def drain():
+        for k, rec in rt.drain_by_tenant(return_masks=True).items():
+            got[k].append(rec)
+
+    def run(lo, hi, final):
+        for i in range(lo, hi):
+            for k, v, t in groups[i]:
+                rt.submit(k, v, t)
+            rt.flush()
+            if (i + 1) % drain_flushes == 0:
+                drain()
+        if final:
+            rt.flush(final=True)
+        drain()
+
+    # an engine is freed by the cycle collector (its registry holds its
+    # collector): collect earlier runs' windows before the peak is reset
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    n_timed = len(groups) - n_profiled
+    t0 = time.monotonic()
+    run(0, n_timed, final=not n_profiled)
+    sync(dev)
+    seconds = time.monotonic() - t0
+    # latency and queue delay of the timed part alone: rows left queued
+    # when it ends wait through the profiler's start
+    latency_timed = _latency(rt.registry.snapshot())
+    timed_items = sum(len(v) for g in groups[:n_timed] for _, v, _ in g)
+    prof, n_prof_micro = None, 0
+    if n_profiled:
+        spans0 = rt.spans_dispatched
+        _, prof = _profile(lambda: run(n_timed, len(groups), final=True), dev)
+        n_prof_micro = (rt.spans_dispatched - spans0) * rt.span
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+    per = {k: tuple(np.concatenate(x) for x in zip(*recs)) for k, recs in got.items()}
+    snap = rt.registry.snapshot()
+    out = {"per": per, "seconds": seconds, "timed_items": timed_items,
+           "latency_timed": latency_timed,
+           "items_per_s": timed_items / seconds, "profile": prof,
+           "profiled_micro_batches": n_prof_micro, "peak_gib": peak_gib,
+           "stats": rt.stats(), "snapshot": snap,
+           "micro_batches": rt.spans_dispatched * rt.span}
+    if prof is not None:
+        out["per_micro_batch"] = {
+            "launches": prof["device_launches"] / n_prof_micro,
+            "device_ms": prof["device_busy_ms"] / n_prof_micro,
+            "wall_ms": prof["wall_ms"] / n_prof_micro,
+            "device_busy_share": prof["device_busy_share"]}
+    rt.close()
+    return out
+
+
+def _check_tenants(a, b, thetas, label) -> dict:
+    """Two runtime runs over one stream: each tenant's pairs, scores and
+    masks as ``_check_same_emission`` holds an engine run, at that
+    tenant's θ.  Returns the band pairs by tenant and the largest score
+    error."""
+    band, err = {}, 0.0
+    for k, theta in enumerate(thetas):
+        runs = [{"pairs": r["per"][k][:3], "mask": r["per"][k][3]} for r in (a, b)]
+        bk, ek = _check_same_emission(*runs, f"{label} tenant {k}", theta=theta)
+        if bk:
+            band[k] = bk
+        err = max(err, ek)
+    return {"band": band, "max_score_err": err}
+
+
+def _check_runtime_stats(a, b, label) -> None:
+    """Drop and overflow counters, per tenant too, equal between runs."""
+    for key in ("pairs_dropped_budget", "pairs_dropped_tile", "window_overflow",
+                "window_overflow_by_tenant", "n_items"):
+        if a["stats"][key] != b["stats"][key]:
+            raise AssertionError(f"{label} {key}: {a['stats'][key]} vs {b['stats'][key]}")
+
+
+def _runtime(dev, cfg_kw, thetas, lams, **over):
+    from repro_torch.engine import EngineConfig
+    from repro_torch.runtime import MultiTenantRuntime, TenantTable
+
+    return MultiTenantRuntime(EngineConfig(**{**cfg_kw, **over}),
+                              TenantTable(thetas, lams), span=MT_SPAN, device=dev)
+
+
+def _latency(snap) -> dict:
+    from repro_torch.obs import histogram_percentile
+
+    h = snap["latency/admit_to_emit_s"]
+    return {"admit_to_emit_p50_s": histogram_percentile(h, 0.5),
+            "admit_to_emit_p99_s": histogram_percentile(h, 0.99),
+            "admit_to_emit_mean_s": h["sum"] / max(h["count"], 1),
+            "observed": h["count"],
+            "queue_delay_max_s": snap["router/queue_delay_max_s"]}
+
+
+def _span_fill_cost(dev, rt) -> dict:
+    """What one span-fill micro-batch (no valid row, every strip dead)
+    costs on ``rt``'s configuration: spans of fill micro-batches only,
+    dispatched on a fresh runtime after one warm-up span; host clock over
+    4 spans ending in a device sync, and one more span under the
+    profiler."""
+    empty = (np.zeros((0, rt.cfg.d), np.float32), np.zeros(0), np.zeros(0, np.int32),
+             np.zeros(0, np.int32), np.zeros(0))
+    n = rt.span
+    rt._dispatch(*empty)
+    rt.drain_arrays()
+    sync(dev)
+    t0 = time.monotonic()
+    for _ in range(4):
+        rt._dispatch(*empty)
+    rt.drain_arrays()
+    sync(dev)
+    wall = (time.monotonic() - t0) / (4 * n)
+    _, prof = _profile(lambda: (rt._dispatch(*empty), rt.drain_arrays()), dev)
+    rt.close()
+    return {"wall_ms_per_micro_batch": 1e3 * wall,
+            "device_ms_per_micro_batch": prof["device_busy_ms"] / n,
+            "launches_per_micro_batch": prof["device_launches"] / n}
+
+
+def _runtime_rec(run) -> dict:
+    """A run's numbers for the phase line."""
+    st = run["stats"]
+    return {"items_per_s": run["items_per_s"], "seconds": run["seconds"],
+            "timed_items": run["timed_items"], "peak_gib": run["peak_gib"],
+            "micro_batches": run["micro_batches"],
+            "span_fill_micro_batches": st["empty_micro_batches"],
+            "padded_rows": st["padded_rows"],
+            "per_micro_batch": run.get("per_micro_batch"),
+            "port_kernels": (run["profile"] or {}).get("port_kernels"),
+            "pairs": sum(len(x[0]) for x in run["per"].values()),
+            "latency": _latency(run["snapshot"]), "latency_timed": run["latency_timed"]}
+
+
+def phase_runtime(dev, smi, stream, gen_s: float) -> dict:
+    """4e: ``MultiTenantRuntime`` at the main path's window and width with
+    64 tenants under quota eviction (each tenant's 4,096 slots hold its
+    ~1,650 items of horizon, and its own 5,120 items wrap its sub-ring),
+    held against the same runtime on ``join_impl="dense"``; then the
+    kernel route again under ``dead`` and ``oldest`` eviction, whose pairs
+    must be the quota run's (nothing is overwritten)."""
+    from repro_torch.engine.window import quota_partition
+
+    vecs, ts, tenant = stream
+    submits = _submits(vecs, ts, tenant)
+    cfg = dict(theta=THETA, lam=LAM, capacity=CAPACITY, d=D, micro_batch=MICRO,
+               eviction="quota", quotas=quota_partition(CAPACITY, [1.0] * MT_TENANTS))
+    kern, launches = _count_launches(
+        lambda: _run_runtime(dev, _runtime(dev, cfg, MT_THETAS, MT_LAMS), submits))
+    _expect_launches("runtime", launches, kern["micro_batches"])
+    dense = _run_runtime(dev, _runtime(dev, cfg, MT_THETAS, MT_LAMS, join_impl="dense"),
+                         submits, n_profiled=0)
+    chk = _check_tenants(kern, dense, MT_THETAS, "runtime vs dense")
+    _check_runtime_stats(kern, dense, "runtime vs dense")
+    st = kern["stats"]
+    if st["n_items"] != len(vecs) or any(st["window_overflow_by_tenant"]):
+        raise AssertionError(f"runtime: items or overflow {st}")
+    # every pair within one tenant; tenant 6's pairs are tenant 0's
+    local = np.zeros(len(tenant), np.int64)
+    for k in range(MT_TENANTS):
+        sel = tenant == k
+        local[sel] = np.arange(int(sel.sum()))
+    for k, (ua, ub, _, _) in kern["per"].items():
+        if not ((tenant[ua] == k).all() and (tenant[ub] == k).all()):
+            raise AssertionError(f"runtime: tenant {k} drained another tenant's pair")
+    twin = [{"pairs": (local[r[0]], local[r[1]], r[2]), "mask": r[3]}
+            for r in (kern["per"][MT_TWIN[0]], kern["per"][MT_TWIN[1]])]
+    _check_same_emission(*twin, "runtime: tenants 0 and 6 in local uids",
+                         theta=MT_THETAS[0])
+    if not len(twin[0]["pairs"][0]):
+        raise AssertionError("runtime: tenant 0 emitted nothing")
+    # the other policies on the same traffic: no overwrite, so the same pairs
+    others = {}
+    for eviction in ("dead", "oldest"):
+        run, n = _count_launches(lambda: _run_runtime(
+            dev, _runtime(dev, cfg, MT_THETAS, MT_LAMS, eviction=eviction, quotas=None),
+            submits, n_profiled=0))
+        _expect_launches(f"runtime {eviction}", n, run["micro_batches"])
+        c = _check_tenants(run, kern, MT_THETAS, f"runtime {eviction} vs quota")
+        _check_runtime_stats(run, kern, f"runtime {eviction} vs quota")
+        others[eviction] = {"items_per_s": run["items_per_s"], "launches": n,
+                            "band_pairs": sum(map(len, c["band"].values()))}
+    fill = _span_fill_cost(dev, _runtime(dev, cfg, MT_THETAS, MT_LAMS))
+    rec = {"phase": "runtime", "nvidia_smi": smi, "n_items": len(vecs), "gen_s": gen_s,
+           "span_fill_cost": fill,
+           "tenants": MT_TENANTS, "submits": len(submits), "capacity": CAPACITY, "d": D,
+           "quota": cfg["quotas"][0], "launches": launches, **_runtime_rec(kern),
+           "dense_items_per_s": dense["items_per_s"],
+           "band_pairs": sum(map(len, chk["band"].values())),
+           "max_score_err": chk["max_score_err"], "twin_pairs": len(twin[0]["pairs"][0]),
+           "other_policies": others, "stats": st, "profile": kern["profile"]}
+    emit(rec)
+    return launches
+
+
+def phase_isolation(dev, smi) -> dict:
+    """4f: the quota isolation invariant at full width.  A bursty tenant
+    floods 17,000 items a round into a 16,384-slot ring beside 7 slow
+    tenants reposting once a round: under ``quota`` every slow tenant's
+    pairs equal the exact (f64) truth, 5 each, none of its items is
+    overwritten, and the bursty tenant's 64 slots (fewer than a
+    micro-batch) evict its own; the lanes equal the dense oracle's.  Under
+    ``oldest`` on the same traffic the slow tenants lose pairs and
+    items."""
+    from repro_torch.data import bursty_tenant_traffic
+
+    submits, per_tenant = bursty_tenant_traffic(**ISO_TRAFFIC)
+    truth = []
+    for k, (v, t) in enumerate(per_tenant):
+        if k == 0:
+            truth.append(None)      # the flood's own pairs are not held to a truth
+            continue
+        v = v.astype(np.float64)
+        dec = (v @ v.T) * np.exp(-ISO_LAMS[k] * np.abs(t[:, None] - t[None, :]))
+        i, j = np.nonzero(np.tril(dec >= ISO_THETAS[k], -1))
+        truth.append(set(zip(j.tolist(), i.tolist())))
+    tenant = np.concatenate([np.full(len(v), k, np.int32) for k, v, _ in submits])
+    local = np.zeros(len(tenant), np.int64)
+    for k in range(len(ISO_THETAS)):
+        local[tenant == k] = np.arange(int((tenant == k).sum()))
+    cfg = dict(theta=0.8, lam=0.002, capacity=ISO_CAPACITY, d=D, micro_batch=MICRO,
+               eviction="quota", quotas=ISO_QUOTAS)
+    # flush after every submit (rows short of a micro-batch wait), drain
+    # every round; the kernel route's last round under the profiler
+    n_round = ISO_TRAFFIC["n_slow"] + 1
+    kw = dict(n_profiled=0, flush_rows=1, drain_flushes=n_round)
+    quota, launches = _count_launches(lambda: _run_runtime(
+        dev, _runtime(dev, cfg, ISO_THETAS, ISO_LAMS), submits,
+        **dict(kw, n_profiled=n_round)))
+    _expect_launches("isolation", launches, quota["micro_batches"])
+    dense = _run_runtime(dev, _runtime(dev, cfg, ISO_THETAS, ISO_LAMS, join_impl="dense"),
+                         submits, **kw)
+    chk = _check_tenants(quota, dense, ISO_THETAS, "isolation vs dense")
+    _check_runtime_stats(quota, dense, "isolation vs dense")
+    oldest, n_old = _count_launches(lambda: _run_runtime(
+        dev, _runtime(dev, cfg, ISO_THETAS, ISO_LAMS, eviction="oldest", quotas=None),
+        submits, **kw))
+
+    def local_pairs(run, k):
+        ua, ub = run["per"][k][:2]
+        return set(zip(local[ub].tolist(), local[ua].tolist()))
+
+    sq, so = quota["stats"], oldest["stats"]
+    slow = range(1, len(ISO_THETAS))
+    for k in slow:
+        if len(truth[k]) != ISO_TRAFFIC["rounds"] - 1 or local_pairs(quota, k) != truth[k]:
+            raise AssertionError(f"isolation: slow tenant {k} under quota drained "
+                                 f"{sorted(local_pairs(quota, k))}, truth {sorted(truth[k])}")
+    by_q, by_o = sq["window_overflow_by_tenant"], so["window_overflow_by_tenant"]
+    if (any(by_q[1:]) or not by_q[0] or sum(by_q) != sq["window_overflow"]
+            or sum(by_o) != so["window_overflow"]):
+        raise AssertionError(f"isolation: quota overflow by tenant {by_q}, oldest {by_o}")
+    lost = {k: len(truth[k] - local_pairs(oldest, k)) for k in slow}
+    if not (all(by_o[1:]) and any(lost.values())):
+        raise AssertionError(f"isolation: oldest eviction spared the slow tenants: "
+                             f"overflow {by_o}, lost pairs {lost}")
+    fill = _span_fill_cost(dev, _runtime(dev, cfg, ISO_THETAS, ISO_LAMS))
+    rec = {"phase": "isolation", "nvidia_smi": smi, "n_items": len(tenant),
+           "span_fill_cost": fill,
+           "traffic": ISO_TRAFFIC, "quotas": ISO_QUOTAS, "launches": launches,
+           "quota": _runtime_rec(quota), "dense_items_per_s": dense["items_per_s"],
+           "oldest": {"items_per_s": oldest["items_per_s"], "launches": n_old,
+                      "window_overflow_by_tenant": by_o, "slow_pairs_lost": lost},
+           "window_overflow_by_tenant": by_q,
+           "slow_pairs": {k: len(truth[k]) for k in slow},
+           "band_pairs": sum(map(len, chk["band"].values())),
+           "max_score_err": chk["max_score_err"], "stats": sq}
+    emit(rec)
+    return launches
+
+
+def phase_mt_service(dev, smi, stream) -> dict:
+    """4g: ``MultiTenantSSSJService(micro_batch=256)`` (256 x 256 tiles:
+    ``cand_big_kernel``), strict ``tile_k`` 65,536, quota eviction, on the
+    first ``SVC_MT_ITEMS`` items of 4e's stream, flushed whenever a span's
+    rows (1,024) were admitted, the last ``MT_PROFILED_FLUSHES // 2``
+    flushes under the profiler: its groups per tenant against those of a
+    ``join_impl="dense"`` runtime of the same configuration (outside
+    documents with band pairs), its snapshot's names and kinds against
+    ``tests/metrics_schema.json``; then one more window join on its
+    window, timed on the device (``cand_big_kernel`` alone)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.sssj_join import sssj_join_candidates
+    from repro_torch.runtime import MultiTenantRuntime, TenantTable
+    from repro_torch.serving import MultiTenantSSSJService
+
+    vecs, ts, tenant = (x[:SVC_MT_ITEMS] for x in stream)
+    submits = _submits(vecs, ts, tenant)
+    table = TenantTable(MT_THETAS, MT_LAMS)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    svc = MultiTenantSSSJService(table, dim=D, capacity=CAPACITY, span=MT_SPAN,
+                                 micro_batch=SVC_MT_MICRO, eviction="quota", device=dev)
+    cfg = svc.runtime.cfg
+    if cfg.tile_k != SVC_MT_MICRO ** 2 or cfg.block_q != SVC_MT_MICRO:
+        raise AssertionError(f"service config: {cfg}")
+    groups = _flush_groups(submits, SVC_MT_MICRO * MT_SPAN)
+    n_prof = MT_PROFILED_FLUSHES // 2
+    pairs = {k: [] for k in range(MT_TENANTS)}
+
+    def run(lo, hi, final):
+        for g in groups[lo:hi]:
+            for k, v, t in g:
+                svc.submit(k, v, t)
+            for k, ps in svc.flush(final=final).items():
+                pairs[k].extend(ps)
+
+    def go():
+        sync(dev)
+        t0 = time.monotonic()
+        run(0, len(groups) - n_prof, False)
+        sync(dev)
+        seconds = time.monotonic() - t0
+        spans0 = svc.runtime.spans_dispatched
+        _, prof = _profile(lambda: run(len(groups) - n_prof, len(groups), True), dev)
+        return seconds, prof, (svc.runtime.spans_dispatched - spans0) * MT_SPAN
+
+    (seconds, prof, n_prof_micro), launches = _count_launches(go)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+    st = svc.stats()
+    _expect_launches("mt_service", launches, st["spans_dispatched"] * MT_SPAN)
+    timed_items = sum(len(v) for g in groups[:-n_prof] for _, v, _ in g)
+    # the oracle sees what the service pushed: the rows unit-normalized on
+    # the host
+    oracle = _run_runtime(
+        dev, MultiTenantRuntime(dataclasses.replace(cfg, join_impl="dense"), table,
+                                span=MT_SPAN, device=dev),
+        [(k, _unit_rows(np.asarray(v, np.float32)), t) for k, v, t in submits],
+        n_profiled=0, flush_rows=SVC_MT_MICRO * MT_SPAN)
+    local = np.zeros(len(tenant), np.int64)
+    for k in range(MT_TENANTS):
+        local[tenant == k] = np.arange(int((tenant == k).sum()))
+    band_docs, n_band, err, n_groups = {}, 0, 0.0, 0
+    for k, theta in enumerate(MT_THETAS):
+        ua, ub, sc, _ = oracle["per"][k]
+        want = {(int(local[a]), int(local[b])): float(s)
+                for a, b, s in zip(ua.tolist(), ub.tolist(), sc.tolist())}
+        got = {(a, b): s for a, b, s in pairs[k]}
+        differ = got.keys() ^ want.keys()
+        outside = [p for p in differ if abs({**got, **want}[p] - theta) > BAND]
+        if outside:
+            raise AssertionError(f"mt_service tenant {k}: pairs differ outside the "
+                                 f"ε-band: {outside[:5]}")
+        err = max([err] + [abs(got[p] - want[p]) for p in got.keys() & want.keys()])
+        n_band += len(differ)
+        # groups: the oracle's pairs with the band pairs as the service drained them
+        want_groups = _groups([p for p in want if p not in differ]
+                              + [p for p in got if p in differ])
+        if svc.duplicate_groups(k) != want_groups:
+            raise AssertionError(f"mt_service tenant {k}: groups differ from the oracle's")
+        if differ:
+            band_docs[k] = sorted({x for p in differ for x in p})
+        n_groups += len(want_groups)
+    if err > FLOAT_TOL:
+        raise AssertionError(f"mt_service: scores differ by {err}")
+    with open(ROOT / "tests" / "metrics_schema.json") as f:
+        pinned = json.load(f)
+    schema = {re.sub(r"tenant/\d+/", "tenant/<k>/", k): v
+              for k, v in svc.registry.schema().items()}
+    if schema != pinned:
+        raise AssertionError(f"mt_service snapshot names: {sorted(schema.keys() ^ pinned.keys())}")
+    n_samples = _check_prometheus(svc.prometheus_text())
+    if st["pairs_dropped"] or st["window_overflow"] or not n_groups:
+        raise AssertionError(f"mt_service dropped, overflowed or grouped nothing: {st}")
+
+    # one more micro-batch's window join on the service's window, with the
+    # runtime's lanes: cand_big_kernel on the device alone
+    state, ckw = svc.runtime.state, cfg.candidate_kwargs
+    q = torch.from_numpy(_unit_rows(np.asarray(vecs[-SVC_MT_MICRO:], np.float32))).to(dev)
+    tq = torch.from_numpy(np.asarray(ts[-SVC_MT_MICRO:], np.float32) + 1e-3).to(dev)
+    uq = svc.runtime._next_uid + torch.arange(SVC_MT_MICRO, dtype=torch.int32, device=dev)
+    sq = torch.from_numpy(tenant[-SVC_MT_MICRO:]).to(dev)
+    th_q, lam_q = table.lookup(sq)
+
+    def window_join():
+        return sssj_join_candidates(q, state.vecs, tq, state.ts, uq, state.uids,
+                                    summary=state.summary, sq=sq, sw=state.sids,
+                                    theta_q=th_q, lam_q=lam_q, device=dev, **ckw)
+
+    jw = window_join()
+    sync(dev)
+    fill = _span_fill_cost(dev, MultiTenantRuntime(cfg, table, span=MT_SPAN, device=dev))
+    rec = {"phase": "mt_service", "nvidia_smi": smi, "n_items": len(vecs),
+           "span_fill_cost": fill,
+           "micro_batch": SVC_MT_MICRO, "tile_k": cfg.tile_k, "seconds": seconds,
+           "timed_items": timed_items, "items_per_s": timed_items / seconds,
+           "peak_gib": peak_gib, "dense_items_per_s": oracle["items_per_s"],
+           "launches": launches, "micro_batches": st["spans_dispatched"] * MT_SPAN,
+           "span_fill_micro_batches": st["empty_micro_batches"],
+           "per_micro_batch": {
+               "launches": prof["device_launches"] / n_prof_micro,
+               "device_ms": prof["device_busy_ms"] / n_prof_micro,
+               "wall_ms": prof["wall_ms"] / n_prof_micro,
+               "device_busy_share": prof["device_busy_share"]},
+           "profiled_micro_batches": n_prof_micro, "port_kernels": prof["port_kernels"],
+           "window_join_live_tiles": int((jw.iters > 0).sum()),
+           "window_join_ms": cuda_ms(window_join, 5),
+           "cand_big_kernel_window_device_ms": device_ms(window_join, 5, "::cand_big"),
+           "pairs": sum(map(len, pairs.values())), "groups": n_groups,
+           "band_pairs": n_band, "band_documents": band_docs, "max_score_err": err,
+           "prometheus_samples": n_samples, "latency": _latency(svc.snapshot()),
+           "stats": st, "profile": prof}
+    svc.runtime.close()
+    emit(rec)
+    return launches
+
+
+# --------------------------------------------------------------------- #
 # phase 5: flash attention
 # --------------------------------------------------------------------- #
 # (label, B, H, Hkv, S, Dh, causal, dtype): the head geometry of qwen3-0.6b
@@ -1426,7 +1959,9 @@ def phase_flash(dev, smi) -> dict:
         "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for label, c in cases.items()
                            if label.endswith("f32")),
-        **{key: qwen[key] for key in FLASH_TIMES + ("route", "bound_3xtf32_ms",
+        # the kernel it took, under its own key: "route" is the language
+        "kernel_route": qwen["route"],
+        **{key: qwen[key] for key in FLASH_TIMES + ("bound_3xtf32_ms",
                                                     "device_ms_by_kernel")},
         **{f"{key}_bf16": qwen_bf16[key] for key in FLASH_TIMES},
         "max_err_in_ulps_bf16": max(c.get("max_err_in_ulps", 0.0) for c in cases.values()),
@@ -1510,6 +2045,12 @@ def main() -> int:
         by_path["blocked"] = phase_blocked(dev, requests, main_runs, smi)
         del main_runs
         by_path["dedup"] = phase_dedup(dev, smi)
+        t0 = time.monotonic()
+        stream = _mt_stream()
+        by_path["runtime"] = phase_runtime(dev, smi, stream, time.monotonic() - t0)
+        by_path["isolation"] = phase_isolation(dev, smi)
+        by_path["mt_service"] = phase_mt_service(dev, smi, stream)
+        del stream
         torch.cuda.empty_cache()     # the child's phases need the card's memory
         kern, flash = run_kernel_phases(smi)
     except Exception as exc:  # report the failing phase, then fail

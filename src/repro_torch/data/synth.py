@@ -1,12 +1,14 @@
-"""Synthetic dense streams; numpy copies of ``repro.data.synth``'s
-:func:`dense_embedding_stream` and :func:`topic_drift_stream` (same
-seeds give the same arrays)."""
+"""Synthetic streams; numpy copies of ``repro.data.synth``'s
+:func:`dense_embedding_stream`, :func:`topic_drift_stream` and
+:func:`bursty_tenant_traffic` (same seeds give the same arrays)."""
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 
-__all__ = ["dense_embedding_stream", "topic_drift_stream"]
+__all__ = ["bursty_tenant_traffic", "dense_embedding_stream", "topic_drift_stream"]
 
 
 def dense_embedding_stream(
@@ -73,3 +75,49 @@ def topic_drift_stream(
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
     ts = np.cumsum(rng.exponential(1.0 / rate, size=n))
     return vecs.astype(np.float32), ts.astype(np.float64)
+
+
+def bursty_tenant_traffic(
+    n_slow: int,
+    rounds: int,
+    burst: int,
+    d: int,
+    seed: int = 7,
+    repost_gap: float = 1.5,
+    dup_noise: float = 0.02,
+):
+    """Multi-tenant flood traffic: the eviction policies' stress stream.
+
+    Tenant 0 floods ``burst`` random unit vectors per round; slow tenants
+    ``1..n_slow`` each repost a noisy copy of their own base vector once
+    per round, ``repost_gap`` time units apart, so consecutive reposts
+    pair *iff* the previous one still lives in the window, which a bursty
+    co-tenant threatens under oldest-first eviction.
+
+    Returns ``(submits, per_tenant)``: ``submits`` is a time-ordered list
+    of ``(tenant, vecs (b, d) f32, ts (b,))`` submit calls, and
+    ``per_tenant[k]`` is tenant *k*'s full ``(vecs, ts)`` stream in local
+    index order (the brute-force-truth input).
+    """
+    rng = np.random.default_rng(seed)
+    bases = rng.standard_normal((n_slow + 1, d))
+    submits = []
+    streams: List[list] = [[] for _ in range(n_slow + 1)]
+    for r in range(rounds):
+        t0 = repost_gap * r
+        for k in range(1, n_slow + 1):
+            v = bases[k] + dup_noise * rng.standard_normal(d)
+            v = (v / np.linalg.norm(v)).astype(np.float32)
+            tk = np.array([t0 + 0.01 * k])
+            streams[k].append((v[None], tk))
+            submits.append((k, v[None], tk))
+        vb = rng.standard_normal((burst, d))
+        vb = (vb / np.linalg.norm(vb, axis=1, keepdims=True)).astype(np.float32)
+        tb = t0 + 0.1 + 0.003 * np.arange(burst)
+        streams[0].append((vb, tb))
+        submits.append((0, vb, tb))
+    per_tenant = [
+        (np.concatenate([v for v, _ in s]), np.concatenate([t for _, t in s]))
+        for s in streams
+    ]
+    return submits, per_tenant

@@ -8,9 +8,13 @@ runs them in a host loop on one CUDA stream (the reference's
   1. joins against the window (strip gate, then the tile join with
      in-kernel candidate select) and within itself (ungated);
   2. merges both candidate sets into one ``(max_pairs,)`` buffer;
-  3. writes itself into the ring oldest-first, refreshing the strip
-     summaries it touched;
+  3. writes itself into the ring under the configured eviction policy
+     (oldest, dead or quota), refreshing the strip summaries it touched;
   4. adds its counts to the telemetry.
+
+The same micro-step serves the multi-tenant runtime
+(``repro_torch.runtime``), which adds the stream-id lane and per-row
+thresholds (:func:`make_micro_step`'s ``tenant_lookup``).
 
 With ``emit_dense=True`` (the reference's oracle path) steps 1–2 are
 instead two dense tile joins, whose ``(mb, capacity + mb)`` score matrix
@@ -28,7 +32,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +59,7 @@ __all__ = [
     "make_batch_step",
     "make_micro_step",
     "pad_request",
+    "stack_outputs",
 ]
 
 
@@ -73,7 +78,9 @@ class EngineConfig:
     emit_dense: bool = False     # dense-matrix compaction (oracle path)
     join_impl: Optional[str] = None  # None = kernel path, "scan", "dense" = oracle
     use_ref: bool = False        # route joins through the dense reference
-    eviction: str = "oldest"     # write-slot policy; only "oldest" is ported
+    eviction: str = "oldest"     # write-slot policy: oldest/dead/quota
+    quotas: Optional[Tuple[int, ...]] = None  # per-stream slots (quota
+    #                                           policy); sums to capacity
     l2_gate: Optional[bool] = None  # strip gate: True/False, None = auto
     #   (on for the kernel path and the scan, where it can skip strips)
 
@@ -119,12 +126,27 @@ class EngineConfig:
                 f"eviction must be one of {EVICTION_POLICIES}, "
                 f"got {self.eviction!r}"
             )
-        if self.eviction != "oldest":
-            raise NotImplementedError(
-                f"eviction={self.eviction!r} is not ported yet; it comes "
-                f"with the multi-tenant runtime (ROADMAP queue 1, "
-                f"\"Multi-tenant runtime\")"
-            )
+        if self.quotas is not None:
+            if self.eviction != "quota":
+                raise ValueError(
+                    f"quotas are only meaningful under eviction='quota' "
+                    f"(got eviction={self.eviction!r})"
+                )
+            qs = tuple(self.quotas)
+            for i, v in enumerate(qs):
+                if (isinstance(v, bool) or not isinstance(v, (int, np.integer))
+                        or v < 1):
+                    raise ValueError(
+                        f"quotas[{i}] must be a positive int, got {v!r}"
+                    )
+            if sum(int(v) for v in qs) != self.capacity:
+                raise ValueError(
+                    f"quotas must sum to capacity ({self.capacity}), got "
+                    f"{sum(int(v) for v in qs)} over {len(qs)} streams"
+                )
+            object.__setattr__(self, "quotas", tuple(int(v) for v in qs))
+        elif self.eviction == "quota":
+            raise ValueError("eviction='quota' requires a quotas table")
 
     @property
     def tau(self) -> float:
@@ -139,6 +161,21 @@ class EngineConfig:
         return not (
             self.emit_dense or self.use_ref or self.join_impl == "dense"
         )
+
+    @property
+    def n_lanes(self) -> Optional[int]:
+        """Stream lanes the window state carries for this configuration
+        (from the quota table; the multi-tenant runtime widens it to its
+        tenant count)."""
+        return None if self.quotas is None else len(self.quotas)
+
+    def quotas_device(self, device: DeviceLike = None) -> Optional[torch.Tensor]:
+        """The quota table as a device tensor (``None`` off-quota): what
+        the write-slot policy consumes in each step."""
+        if self.quotas is None:
+            return None
+        return torch.tensor(self.quotas, dtype=torch.int64,
+                            device=resolve_device(device))
 
     @property
     def join_kwargs(self) -> dict:
@@ -215,15 +252,32 @@ def pad_request(vecs, ts, next_uid: int, micro_batch: int):
     )
 
 
-def make_micro_step(cfg: EngineConfig):
-    """The per-micro-batch step: ``(state, telem, q, tq, uq, n_valid) →
-    (PairBuffer, row_mask (mb,) bool)``; ``state`` and ``telem`` are
-    updated in place, ``n_valid`` is a host int."""
+def make_micro_step(
+    cfg: EngineConfig,
+    ingest: Callable,
+    tenant_lookup: Optional[Callable] = None,
+):
+    """The per-micro-batch step: ``(state, telem, q, tq, uq, n_valid[, sq])
+    → (PairBuffer, row_mask (mb,) bool)``; ``state`` and ``telem`` are
+    updated in place, ``n_valid`` is a host int.
+
+    ``ingest(state, q, tq, uq, n_valid, t_max[, sq])`` writes the
+    micro-batch into the ring, in place.  With ``tenant_lookup`` (the
+    multi-tenant runtime) the step takes the stream-id lane ``sq (mb,)``:
+    the window join gets ``sq`` against the ring's ``sids``, the self join
+    ``sq`` against itself, and ``tenant_lookup(sq) → (theta_q, lam_q) |
+    None`` gives the per-row thresholds (``None`` for a uniform table).
+    """
     kw = cfg.join_kwargs
     ckw = cfg.candidate_kwargs
-    tau = cfg.tau
+    multi = tenant_lookup is not None
+    if cfg.emit_dense and multi:
+        raise ValueError(
+            "the emit_dense oracle path is single-tenant; multi-tenant runs "
+            "use the hierarchical path"
+        )
 
-    def joins(state: WindowState, q, tq, uq):
+    def joins(state: WindowState, q, tq, uq, sq):
         """``(PairBuffer, row_mask, window-join iters, gate stats)``."""
         dev = q.device
         if cfg.emit_dense:
@@ -237,29 +291,36 @@ def make_micro_step(cfg: EngineConfig):
                                 max_pairs=cfg.max_pairs)
             return (buf, (scores > 0.0).any(1), it_win,
                     torch.zeros(3, dtype=torch.int32, device=dev))
+        win_kw = self_kw = {}
+        if multi:
+            per_row = tenant_lookup(sq)
+            theta_q, lam_q = per_row if per_row is not None else (None, None)
+            win_kw = dict(sq=sq, sw=state.sids, theta_q=theta_q, lam_q=lam_q)
+            self_kw = dict(sq=sq, sw=sq, theta_q=theta_q, lam_q=lam_q)
         # the window join consults the strip summary (None = ungated); the
         # self join never does: its one strip is this micro-batch
         jw = sssj_join_candidates(
             q, state.vecs, tq, state.ts, uq, state.uids,
-            summary=state.summary, device=dev, **ckw,
+            summary=state.summary, device=dev, **ckw, **win_kw,
         )
-        js = sssj_join_candidates(q, q, tq, tq, uq, uq, device=dev, **ckw)
+        js = sssj_join_candidates(q, q, tq, tq, uq, uq, device=dev, **ckw,
+                                  **self_kw)
         buf = merge_candidates(
             concat_candidates(jw.cands, js.cands), max_pairs=cfg.max_pairs
         )
         return buf, jw.row_mask | js.row_mask, jw.iters, jw.gate_stats
 
     def micro_step(state: WindowState, telem: EngineTelemetry,
-                   q, tq, uq, n_valid: int):
+                   q, tq, uq, n_valid: int, sq=None):
         dev = q.device
-        buf, row_mask, it_win, gs = joins(state, q, tq, uq)
+        buf, row_mask, it_win, gs = joins(state, q, tq, uq, sq)
         # newest valid arrival: the reference point for live-slot overflow
         lanes = torch.arange(q.shape[0], device=dev)
         t_max = torch.where(lanes < n_valid, tq, -torch.inf).max()
-        push_with_overflow(
-            state, q, tq, uq, n_valid, t_max, tau, eviction=cfg.eviction,
-            summary_block_w=cfg.block_w, summary_chunk_d=cfg.chunk_d,
-        )
+        if multi:
+            ingest(state, q, tq, uq, n_valid, t_max, sq)
+        else:
+            ingest(state, q, tq, uq, n_valid, t_max)
         for acc, inc in (
             (telem.chunks, it_win.sum()),
             (telem.tiles, it_win.numel()),
@@ -276,21 +337,37 @@ def make_micro_step(cfg: EngineConfig):
     return micro_step
 
 
-def make_batch_step(cfg: EngineConfig):
+def stack_outputs(outs) -> Tuple[PairBuffer, torch.Tensor]:
+    """Micro-steps' ``(PairBuffer, row_mask)`` outputs stacked over
+    micro-batches: each buffer leaf and the masks gain a leading axis."""
+    bufs = PairBuffer(*(torch.stack(x) for x in zip(*(b for b, _ in outs))))
+    return bufs, torch.stack([m for _, m in outs])
+
+
+def make_batch_step(cfg: EngineConfig, device: DeviceLike = None):
     """The request-batch step: ``(state, telem, qs, tqs, uqs, nvs) →
     (bufs, masks)``, a host loop of micro-steps over ``qs (n_micro, mb,
     d)``, ``tqs/uqs (n_micro, mb)`` device tensors and ``nvs`` host
     counts; ``bufs`` stacks each :class:`PairBuffer` leaf over
-    micro-batches and ``masks`` is ``(n_micro, mb)``."""
-    micro_step = make_micro_step(cfg)
+    micro-batches and ``masks`` is ``(n_micro, mb)``.  ``device`` holds
+    the quota table."""
+    tau = cfg.tau
+    quo = cfg.quotas_device(device)
+
+    def ingest(state, q, tq, uq, n_valid, t_max):
+        push_with_overflow(
+            state, q, tq, uq, n_valid, t_max, tau,
+            eviction=cfg.eviction, quotas=quo,
+            summary_block_w=cfg.block_w, summary_chunk_d=cfg.chunk_d,
+        )
+
+    micro_step = make_micro_step(cfg, ingest)
 
     def batch_step(state, telem, qs, tqs, uqs, nvs):
-        outs = [
+        return stack_outputs([
             micro_step(state, telem, qs[m], tqs[m], uqs[m], int(nvs[m]))
             for m in range(qs.shape[0])
-        ]
-        bufs = PairBuffer(*(torch.stack(x) for x in zip(*(b for b, _ in outs))))
-        return bufs, torch.stack([m for _, m in outs])
+        ])
 
     return batch_step
 
@@ -345,13 +422,7 @@ class StreamEngineBase:
             self.state, self.telem, torch.from_numpy(qs).to(dev),
             torch.from_numpy(tqs).to(dev), torch.from_numpy(uqs).to(dev), nvs,
         )
-        done = None
-        if dev.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
-        self._pending.append(
-            self._copier.submit(self._fetch, bufs, masks, nvs, done)
-        )
+        self._enqueue_fetch(bufs, masks, nvs)
         # the dense path would have fetched (mb, capacity) + (mb, mb) f32
         # score matrices per micro-batch
         mb = self.cfg.micro_batch
@@ -359,6 +430,18 @@ class StreamEngineBase:
             mb * self.cfg.capacity + mb * mb
         )
         return uq
+
+    def _enqueue_fetch(self, bufs: PairBuffer, masks: torch.Tensor,
+                       nvs: np.ndarray) -> None:
+        """Hand one dispatch's outputs to the copy thread, behind a CUDA
+        event recorded after its last launch."""
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        self._pending.append(
+            self._copier.submit(self._fetch, bufs, masks, nvs, done)
+        )
 
     def _fetch(self, bufs: PairBuffer, masks: torch.Tensor, nvs: np.ndarray,
                done: Optional[torch.cuda.Event]):
@@ -383,12 +466,17 @@ class StreamEngineBase:
         return bufs_h, masks_h, nvs, nbytes, t_done, t_done - t0
 
     # ------------------------------------------------------------------ #
+    def _observe_emission(self, t_done: float, fetch_s: float) -> None:
+        """Per-record drain hook (the multi-tenant runtime's admission→
+        emission latency); records arrive in dispatch order."""
+
     def _drain(self):
         recs = [f.result() for f in self._pending]
         self._pending.clear()
         ua_all, ub_all, sc_all, mk_all = [], [], [], []
-        for bufs, masks, nvs, nbytes, _t_done, _fetch_s in recs:
+        for bufs, masks, nvs, nbytes, t_done, fetch_s in recs:
             self.bytes_to_host += nbytes
+            self._observe_emission(t_done, fetch_s)
             n = np.asarray(bufs.n_pairs)
             n = n.reshape(n.shape[0], -1)             # (n_micro, n_segments)
             n_micro, n_seg = n.shape
@@ -445,6 +533,13 @@ class StreamEngineBase:
         """Pairs lost to emission capacity at any level."""
         return int(self.telem.dropped.item() + self.telem.dropped_tile.item())
 
+    @property
+    def overflow_by_tenant(self) -> Optional[np.ndarray]:
+        """Live overwrites per victim stream ``(n_lanes,)``; ``None`` when
+        the state carries no stream lanes."""
+        lo = self.state.lane_overflow
+        return None if lo is None else lo.cpu().numpy()
+
     def _publish_metrics(self, reg: MetricsRegistry) -> None:
         """Snapshot-time collector: engine counters under ``engine/…``."""
         t = EngineTelemetry(*(int(x.item()) for x in self.telem))
@@ -465,21 +560,35 @@ class StreamEngineBase:
         c("engine/prune/tiles_skipped_time").set(t.tiles_skipped_time)
         c("engine/prune/tiles_skipped_l2").set(t.tiles_skipped_l2)
         c("engine/prune/strips_survived").set(t.strips_survived)
+        by_tenant = self.overflow_by_tenant
+        if by_tenant is not None:
+            for k, v in enumerate(by_tenant.tolist()):
+                c(f"tenant/{k}/window_overflow").set(int(v))
 
-    def metrics(self) -> dict:
-        """The namespaced registry snapshot (the primary stats surface)."""
-        return self.registry.snapshot()
-
-    def stats(self) -> dict:
-        """The reference's ``stats()`` keys, from a registry snapshot."""
-        snap = self.registry.snapshot()
-        return {
+    @staticmethod
+    def _legacy_engine_view(snap: dict) -> dict:
+        """The reference's ``stats()`` keys, from a registry snapshot, with
+        ``window_overflow_by_tenant`` when the state carries lanes."""
+        out = {
             k: snap[f"engine/{k}"]
             for k in ("n_items", "chunks_executed", "tiles_total",
                       "pairs_emitted", "pairs_dropped", "pairs_dropped_budget",
                       "pairs_dropped_tile", "window_overflow", "bytes_to_host",
                       "bytes_dense_equiv")
         }
+        by_tenant = []
+        while f"tenant/{len(by_tenant)}/window_overflow" in snap:
+            by_tenant.append(snap[f"tenant/{len(by_tenant)}/window_overflow"])
+        if by_tenant:
+            out["window_overflow_by_tenant"] = by_tenant
+        return out
+
+    def metrics(self) -> dict:
+        """The namespaced registry snapshot (the primary stats surface)."""
+        return self.registry.snapshot()
+
+    def stats(self) -> dict:
+        return self._legacy_engine_view(self.registry.snapshot())
 
 
 class StreamEngine(StreamEngineBase):
@@ -491,9 +600,9 @@ class StreamEngine(StreamEngineBase):
     ) -> None:
         super().__init__(cfg, device, registry)
         self.state: WindowState = init_window(
-            cfg.capacity, cfg.d, eviction=cfg.eviction,
+            cfg.capacity, cfg.d, n_lanes=cfg.n_lanes, eviction=cfg.eviction,
             summary_block_w=cfg.block_w if cfg.gate_enabled else None,
             summary_chunk_d=cfg.chunk_d, device=self.device,
         )
         self.telem = init_telemetry(self.device)
-        self._step = make_batch_step(cfg)
+        self._step = make_batch_step(cfg, self.device)

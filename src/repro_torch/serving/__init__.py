@@ -1,3 +1,4 @@
-"""Serving: the single-stream streaming similarity self-join service."""
+"""Serving: the streaming similarity self-join services, single- and
+multi-tenant."""
 
-from .service import SSSJService, ServiceStats  # noqa: F401
+from .service import MultiTenantSSSJService, SSSJService, ServiceStats  # noqa: F401

@@ -1,31 +1,35 @@
 """SSSJ serving loop: batched requests → embeddings → similar-pair events.
 
-Counterpart of ``repro.serving.service``'s single-stream service.
-Timestamped documents arrive in request batches; each batch is embedded
-(a caller-provided host function such as
-:func:`repro_torch.data.hashing_embed`, or caller-provided vectors),
-unit-normalized on the host, and fed to the torch
-:class:`~repro_torch.engine.StreamEngine`; the compacted pair arrays it
-drains drive near-duplicate grouping (union-find) — application #2 — or
-trend detection (groups that grew within the horizon) — application #1.
+Counterpart of ``repro.serving.service``.  Timestamped documents arrive
+in request batches; each batch is embedded (a caller-provided host
+function such as :func:`repro_torch.data.hashing_embed`, or
+caller-provided vectors), unit-normalized on the host, and fed to the
+torch :class:`~repro_torch.engine.StreamEngine`; the compacted pair
+arrays it drains drive near-duplicate grouping (union-find) —
+application #2 — or trend detection (groups that grew within the
+horizon) — application #1.
 
-This module holds :class:`SSSJService` alone.  The reference's
-``MultiTenantSSSJService`` rides the multi-tenant runtime and comes with
-it (ROADMAP queue 1, "Multi-tenant runtime"); its ``LMEmbedder`` comes
-with the LM stack.
+:class:`MultiTenantSSSJService` is the same loop over the multi-tenant
+runtime: many logical streams coalesce onto one engine, each with its
+own ``(θ, λ)``, and the union-find keys are namespaced ``(tenant, uid)``
+tuples.  The reference's sharded (``mesh=``) and fused-embedding
+(``fused=``) variants and its ``LMEmbedder`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .._device import DeviceLike
 from ..engine.engine import EngineConfig, StreamEngine
+from ..engine.window import quota_partition
+from ..runtime import MultiTenantRuntime, TenantTable
 
 __all__ = [
+    "MultiTenantSSSJService",
     "SSSJService",
     "ServiceStats",
 ]
@@ -177,3 +181,163 @@ class SSSJService:
     def prometheus_text(self) -> str:
         """The same snapshot in Prometheus text exposition format."""
         return self.engine.registry.prometheus_text()
+
+
+class MultiTenantSSSJService:
+    """Near-duplicate / trend service over K coalesced logical streams.
+
+    One engine serves every tenant: ``submit`` enqueues a tenant's
+    documents, ``flush`` coalesces queued arrivals across tenants into full
+    micro-batches, drains the emitted pairs and unions them under
+    namespaced keys ``(tenant, uid)``, so no two tenants' groups can merge.
+    Per-tenant ``(θ, λ)`` comes from the :class:`~repro_torch.runtime
+    .TenantTable`; vectors are unit-normalized here.  Tiles are
+    ``micro_batch`` wide (``block_q = block_w = micro_batch``), with the
+    lossless ``tile_k = micro_batch²`` unless given.
+
+    ``eviction`` selects the window's write-slot policy: ``"oldest"``,
+    ``"dead"`` (reuse expired slots first) or ``"quota"`` (a static
+    partition of the window into per-tenant sub-rings, so a bursty tenant
+    only evicts its own items); ``quotas`` gives each tenant's slots
+    (summing to ``capacity``; default: equal weights).  The engine runs on
+    ``device`` (``None`` = CUDA).  ``mesh`` (the sharded engine) and
+    ``fused`` (embedding inside the join) are not ported yet and raise.
+    """
+
+    def __init__(
+        self,
+        table: TenantTable,
+        dim: int,
+        capacity: int = 4096,
+        micro_batch: int = 64,
+        max_pairs: int = 4096,
+        tile_k: Optional[int] = None,
+        span: int = 4,
+        max_queue_per_tenant: int = 65536,
+        fused=None,
+        mesh=None,
+        eviction: str = "oldest",
+        quotas: Optional[Sequence[int]] = None,
+        device: DeviceLike = None,
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "a sharded MultiTenantSSSJService (mesh=) comes with the "
+                "sharded engine (ROADMAP queue 1, item 7)"
+            )
+        if fused is not None:
+            raise NotImplementedError(
+                "fused embed→join (fused=) comes with the LM stack (ROADMAP "
+                "queue 1, item 9); embed on the host and submit vectors"
+            )
+        if eviction == "quota" and quotas is None:
+            quotas = quota_partition(capacity, [1.0] * table.n_tenants)
+        # EngineConfig checks the quotas' values and sum, the runtime their
+        # count against the tenant table
+        th0, lm0 = table.spec(0)
+        cfg = EngineConfig(
+            theta=th0, lam=lm0, capacity=capacity, d=dim,
+            micro_batch=micro_batch, max_pairs=max_pairs,
+            tile_k=tile_k or micro_batch * micro_batch,
+            block_q=micro_batch, block_w=micro_batch,
+            chunk_d=min(dim, 128),
+            eviction=eviction, quotas=None if quotas is None else tuple(quotas),
+        )
+        self.runtime = MultiTenantRuntime(
+            cfg, table, span=span, max_queue_per_tenant=max_queue_per_tenant,
+            device=device,
+        )
+        self.table = table
+        self.groups = _UnionFind()
+        # global uid → per-tenant local uid (dense per-tenant numbering, the
+        # namespace the caller reasons in)
+        self._local_of: Dict[int, int] = {}
+        self._next_local = [0] * table.n_tenants
+
+    # ------------------------------------------------------------------ #
+    def submit(
+        self,
+        tenant: int,
+        batch: np.ndarray,           # (B, dim) vectors
+        timestamps: np.ndarray,      # (B,)
+    ) -> np.ndarray:
+        """Enqueue one tenant's documents; returns their *local* uids.
+        Nothing reaches the device until :meth:`flush`: a tenant submitting
+        3 documents at a time still rides full micro-batches once enough
+        tenants queue up."""
+        vecs = np.asarray(batch, np.float32)
+        norms = np.linalg.norm(vecs, axis=1, keepdims=True)
+        uids = self.runtime.submit(tenant, vecs / np.maximum(norms, 1e-9),
+                                   np.asarray(timestamps))
+        base = self._next_local[tenant]
+        local = np.arange(base, base + uids.size, dtype=np.int64)
+        self._next_local[tenant] = base + uids.size
+        for g, l in zip(uids.tolist(), local.tolist()):
+            self._local_of[g] = l
+        return local
+
+    def flush(
+        self, final: bool = False
+    ) -> Dict[int, List[Tuple[int, int, float]]]:
+        """Dispatch queued arrivals, drain, and group the emitted pairs.
+
+        With ``final=False`` only full micro-batches dispatch (rows short of
+        one stay queued); ``final=True`` pads the tail out (end of stream,
+        or a latency deadline).  Returns ``{tenant: [(local_uid_newer,
+        local_uid_older, score)]}`` for tenants that emitted anything.
+        """
+        self.runtime.flush(final=final)
+        per = self.runtime.drain_by_tenant()
+        out: Dict[int, List[Tuple[int, int, float]]] = {}
+        union = self.groups.union
+        loc = self._local_of
+        for t, (ua, ub, sc) in per.items():
+            if ua.size == 0:
+                continue
+            pairs = [
+                (loc[a], loc[b], s)
+                for a, b, s in zip(ua.tolist(), ub.tolist(), sc.tolist())
+            ]
+            for a, b, _ in pairs:
+                union((t, a), (t, b))          # namespaced: (tenant, uid)
+            out[t] = pairs
+        return out
+
+    # ------------------------------------------------------------------ #
+    def duplicate_groups(self, tenant: int) -> List[List[int]]:
+        """Connected components of one tenant's similar-pair graph."""
+        comp: Dict[Hashable, List[int]] = {}
+        for key in list(self.groups.parent):
+            t, u = key
+            if t != tenant:
+                continue
+            comp.setdefault(self.groups.find(key), []).append(u)
+        return sorted(sorted(v) for v in comp.values() if len(v) > 1)
+
+    def trending(self, tenant: int, min_size: int = 3) -> List[List[int]]:
+        return [
+            g for g in self.duplicate_groups(tenant) if len(g) >= min_size
+        ]
+
+    def tenant_stats(self, tenant: int) -> dict:
+        return self.runtime.tenant_stats(tenant)
+
+    def stats(self) -> dict:
+        return self.runtime.stats()
+
+    # -- observability ------------------------------------------------- #
+    @property
+    def registry(self):
+        """The shared :class:`~repro_torch.obs.MetricsRegistry`: engine,
+        router, per-tenant, span and latency metrics in one instance."""
+        return self.runtime.registry
+
+    def snapshot(self) -> dict:
+        """One coherent namespaced metrics snapshot (``engine/…``,
+        ``router/…``, ``runtime/…``, ``span/…``, ``tenant/<k>/…``,
+        ``latency/…``)."""
+        return self.runtime.registry.snapshot()
+
+    def prometheus_text(self) -> str:
+        """The same snapshot in Prometheus text exposition format."""
+        return self.runtime.registry.prometheus_text()

@@ -109,6 +109,43 @@ def test_dense_impl_matches_reference_dense(kw):
     assert _prune(got_eng.metrics()) == _prune(want_eng.metrics())
 
 
+@pytest.mark.parametrize("kw", [
+    dict(eviction="dead"),
+    dict(eviction="quota", quotas=(64,)),                # one lane: the whole ring
+    dict(eviction="quota", quotas=(40, 24)),             # stream 0 owns 40 slots
+    dict(eviction="dead", join_impl="scan"),
+    dict(eviction="quota", quotas=(40, 24), join_impl="dense"),
+])
+def test_engine_eviction_policies_match_reference(kw):
+    """``StreamEngine`` under the dead and quota policies on a 64-slot ring
+    that wraps over live items: pairs, masks, ``stats()`` (with the
+    per-tenant overflow) and the final window and lanes equal the
+    reference's.  A single stream writes only lane 0, so ``(40, 24)``
+    confines it to 40 slots."""
+    cfg = _cfg_kw(capacity=64, lam=0.005, **kw)
+    vecs, ts = dense_embedding_stream(320, 64, seed=7, rate=2.0)
+    jkw = dict(cfg, join_impl=cfg.get("join_impl") or "pallas")
+    want_eng = JEngine(JConfig(**jkw))
+    got_eng = StreamEngine(EngineConfig(**cfg), device=CPU)
+    _assert_same_emission(_run(got_eng, vecs, ts, 80), _run(want_eng, vecs, ts, 80),
+                          cfg["theta"])
+    st = got_eng.stats()
+    assert st == want_eng.stats()
+    assert st["window_overflow"] > 0
+    if "quotas" in kw:
+        assert st["window_overflow_by_tenant"][0] == st["window_overflow"]
+    final = window_to_numpy(got_eng.state)
+    for name in ("uids", "ts", "sids", "lane_cursor", "lane_overflow"):
+        want = getattr(want_eng.state, name)
+        if want is None:
+            assert final[name] is None, name
+        else:
+            np.testing.assert_array_equal(final[name], np.asarray(want), err_msg=name)
+    assert final["cursor"] == int(want_eng.state.cursor)
+    got_eng.close()
+    want_eng.close()
+
+
 def test_kernel_path_matches_dense_path():
     """Gated kernel path and dense oracle drain the same pairs."""
     vecs, ts = dense_embedding_stream(320, 64, seed=2, rate=2.0)
@@ -223,8 +260,10 @@ def test_metric_names_follow_pinned_schema():
         (dict(join_impl="pallas"), ValueError),
         (dict(emit_dense=True, l2_gate=True), ValueError),
         (dict(use_ref=True, l2_gate=True), ValueError),
-        (dict(eviction="dead"), NotImplementedError),
+        (dict(eviction="quota"), ValueError),            # no quota table
         (dict(eviction="lru"), ValueError),
+        (dict(quotas=(256, 256)), ValueError),           # quotas off-quota
+        (dict(eviction="quota", quotas=(256, 255)), ValueError),  # sum != capacity
     ],
 )
 def test_config_validation(kw, exc):

@@ -23,19 +23,23 @@ import torch
 
 from repro.core.similarity import time_horizon as j_time_horizon
 from repro.data import synth as jsynth
+from repro.engine.window import quota_partition as j_quota_partition
 from repro.obs import MetricsRegistry as JRegistry
+from repro.runtime import RequestRouter as JRouter
 from repro_torch.core.blocked import BlockedJoinConfig, BlockedStreamJoiner
 from repro_torch.core.similarity import time_horizon
 from repro_torch.data import DedupFilter
 from repro_torch.data import synth as tsynth
 from repro_torch.engine import EngineConfig, StreamEngine
+from repro_torch.engine.window import quota_partition
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as tflash
 from repro_torch.kernels.sssj_join import gate as tgate
 from repro_torch.kernels.sssj_join import kernel as tkernel
 from repro_torch.kernels.sssj_join import ops as tops
 from repro_torch.obs import MetricsRegistry
-from repro_torch.serving import SSSJService
+from repro_torch.runtime import MultiTenantRuntime, RequestRouter, TenantTable
+from repro_torch.serving import MultiTenantSSSJService, SSSJService
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORT = os.path.join(_ROOT, "src", "repro_torch")
@@ -63,6 +67,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.kernels, repro_torch.kernels.flash_attention\n"
         "import repro_torch.engine, repro_torch.serving, repro_torch.core.blocked\n"
         "import repro_torch.data.pipeline, repro_torch.obs.spans, repro_torch.obs.bridge\n"
+        "import repro_torch.runtime, repro_torch.runtime.runtime\n"
+        "import repro_torch.runtime.router, repro_torch.runtime.tenants\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -87,7 +93,8 @@ def test_port_sources_found():
     names = {os.path.basename(p) for p in _port_sources()}
     assert {"engine.py", "window.py", "kernel.py", "gate.py", "ops.py",
             "chip_smoke.py", "chip_turns.py", "service.py", "blocked.py",
-            "pipeline.py", "spans.py", "bridge.py", "registry.py"} <= names
+            "pipeline.py", "spans.py", "bridge.py", "registry.py", "runtime.py",
+            "tenants.py", "router.py", "synth.py"} <= names
 
 
 def _no_gpu(monkeypatch):
@@ -107,7 +114,13 @@ def test_engine_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
     lambda: BlockedStreamJoiner(BlockedJoinConfig(theta=0.9, lam=0.1, capacity=64,
                                                   d=8, block_q=8, block_w=8)),
     lambda: DedupFilter(dim=8, capacity=64, block=8),
-], ids=["SSSJService", "BlockedStreamJoiner", "DedupFilter"])
+    lambda: MultiTenantRuntime(EngineConfig(theta=0.9, lam=0.1, capacity=64, d=8,
+                                            micro_batch=8),
+                               TenantTable.uniform(2, 0.9, 0.1)),
+    lambda: MultiTenantSSSJService(TenantTable.uniform(2, 0.9, 0.1), dim=8,
+                                   capacity=64, micro_batch=8),
+], ids=["SSSJService", "BlockedStreamJoiner", "DedupFilter", "MultiTenantRuntime",
+        "MultiTenantSSSJService"])
 def test_consumers_default_to_cuda_and_raise_without_gpu(monkeypatch, make):
     _no_gpu(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -229,3 +242,55 @@ def test_registry_copy_agrees():
     assert got.schema() == want.schema()
     with pytest.raises(TypeError):
         got.gauge("engine/n_items")
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(seed=3, repost_gap=60.0, dup_noise=0.05)])
+def test_bursty_tenant_traffic_copy_agrees(kw):
+    got, want = (mod.bursty_tenant_traffic(3, 4, 9, 16, **kw) for mod in (tsynth, jsynth))
+    assert len(got[0]) == len(want[0])
+    for (gk, gv, gt), (wk, wv, wt) in zip(got[0], want[0]):
+        assert gk == wk
+        np.testing.assert_array_equal(gv, wv)
+        np.testing.assert_array_equal(gt, wt)
+    for (gv, gt), (wv, wt) in zip(got[1], want[1]):
+        np.testing.assert_array_equal(gv, wv)
+        np.testing.assert_array_equal(gt, wt)
+
+
+@pytest.mark.parametrize("cap,seed,k", [(64, 0, 3), (262144, 1, 64), (16384, 2, 8)])
+def test_quota_partition_copy_agrees(cap, seed, k):
+    w = np.random.default_rng(seed).random(k) + 0.1
+    assert quota_partition(cap, w) == j_quota_partition(cap, w)
+
+
+def test_router_copy_agrees():
+    """The same admits and takes through both routers give the same rows,
+    stream ids, queue depths and counters, and the same backpressure."""
+    rng = np.random.default_rng(0)
+    got, want = RequestRouter(3, 20), JRouter(3, 20)
+    uid = 0
+    for _ in range(60):
+        if len(want) and rng.random() < 0.4:
+            n = int(rng.integers(1, len(want) + 1))
+            g, w = got.take(n), want.take(n)
+            for a, b in zip(g[:4], w[:4]):
+                np.testing.assert_array_equal(a, b)
+            assert g[4].shape == w[4].shape and g[4].dtype == w[4].dtype
+        else:
+            b = int(rng.integers(1, 9))
+            args = (int(rng.integers(0, 3)), np.zeros((b, 2), np.float32),
+                    np.zeros(b), np.arange(uid, uid + b, dtype=np.int32))
+            raised = []
+            for r in (got, want):
+                try:
+                    r.admit(*args)
+                    raised.append(None)
+                except RuntimeError as exc:
+                    raised.append(str(exc))
+            assert raised[0] == raised[1]
+            uid += b
+        assert got.queued_by_tenant == want.queued_by_tenant
+        assert (got.telemetry.items_admitted, got.telemetry.items_rejected,
+                got.telemetry.items_dispatched) == (
+            want.telemetry.items_admitted, want.telemetry.items_rejected,
+            want.telemetry.items_dispatched)

@@ -66,7 +66,7 @@ def test_oldest_push_matches_reference_through_wrap(cap, b, summary):
     for v, tq, uq, n_valid, t_max in _micro_batches(rng, 14, b, d, tau):
         jdest, jcur, _, _ = jwin.select_write_slots(
             jstate, b, n_valid, jnp.float32(t_max), tau)
-        dest, cur = twin.select_write_slots(state, b, n_valid)
+        dest, cur, _, _ = twin.select_write_slots(state, b, n_valid)
         np.testing.assert_array_equal(dest.numpy(), np.asarray(jdest))
         assert int(cur) == int(jcur)
         twin.push_with_overflow(
@@ -83,14 +83,19 @@ def test_oldest_push_matches_reference_through_wrap(cap, b, summary):
 
 @pytest.mark.parametrize("eviction", ["dead", "quota"])
 def test_unported_policies_raise(eviction):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twin.init_window(16, 8, eviction=eviction, device=CPU)
-    # the messages name the roadmap item by its title
-    with pytest.raises(NotImplementedError, match="multi-tenant runtime"):
-        twin.init_window(16, 8, eviction=eviction, device=CPU)
-    with pytest.raises(NotImplementedError, match="multi-tenant runtime"):
-        EngineConfig(theta=0.9, lam=0.1, capacity=16, d=8, micro_batch=8,
-                     eviction=eviction)
+    """Both policies are ported; each raises on the inputs it lacks (the
+    dead policy's horizon, the quota policy's table and cursor lane)."""
+    state = twin.init_window(16, 8, eviction=eviction, device=CPU)
+    with pytest.raises(ValueError):
+        twin.select_write_slots(state, 8, 8, eviction=eviction)
+    if eviction == "quota":
+        with pytest.raises(ValueError, match="quotas table"):
+            EngineConfig(theta=0.9, lam=0.1, capacity=16, d=8, micro_batch=8,
+                         eviction=eviction)
+    else:
+        with pytest.raises(ValueError, match="quotas are only meaningful"):
+            EngineConfig(theta=0.9, lam=0.1, capacity=16, d=8, micro_batch=8,
+                         eviction=eviction, quotas=(16,))
 
 
 def test_unknown_policy_rejected():
@@ -119,6 +124,15 @@ def test_state_round_trips_from_reference(summary):
 
 
 def test_state_with_tenant_lanes_is_refused():
-    jstate = jwin.init_window(16, 8, n_lanes=2)
-    with pytest.raises(NotImplementedError):
-        twin.window_from_numpy(jstate, device=CPU)
+    """Tenant lanes are ported: a reference state with them comes back
+    with its lanes as int32, and one without them without."""
+    jstate = jwin.init_window(16, 8, n_lanes=2, eviction="quota")
+    jstate = jstate._replace(lane_cursor=jnp.asarray([3, 1], jnp.int32),
+                             lane_overflow=jnp.asarray([0, 5], jnp.int32))
+    back = twin.window_to_numpy(twin.window_from_numpy(jstate, device=CPU))
+    for lane in ("lane_cursor", "lane_overflow"):
+        np.testing.assert_array_equal(back[lane], np.asarray(getattr(jstate, lane)))
+        assert back[lane].dtype == np.int32
+    plain = twin.window_to_numpy(twin.window_from_numpy(jwin.init_window(16, 8),
+                                                        device=CPU))
+    assert plain["lane_cursor"] is None and plain["lane_overflow"] is None
