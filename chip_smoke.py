@@ -53,6 +53,17 @@ kernel timings, see ``main``):
    g. ``MultiTenantSSSJService(micro_batch=256)`` (256 x 256 tiles, so
       ``cand_big_kernel``), its groups against a dense-oracle runtime's
       and its snapshot's names against ``tests/metrics_schema.json``;
+   h. ``ShardedStreamEngine``: four shards of 65,536 slots (phase 3's
+      window) on a single-process mesh over the visible cards, on phase
+      3's stream, its pairs and masks against phase 3's kernel route and
+      its rings' counts summed against the single ring's;
+   i. the ring dense join (``make_distributed_join_step``) over the same
+      four shards with a global batch of 512: 512 steps fill the rings,
+      then 4 steps' window and self scores against ``use_ref`` and the
+      one-device dense join over the concatenated window;
+   j. ``MultiTenantSSSJService(mesh=...)`` with the four shards under
+      ``oldest`` eviction on a prefix of 4e's stream, its groups against
+      a dense-oracle runtime on the mesh and the single-device service;
 5. flash attention through ``repro_torch.kernels.flash_attention`` at
    the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
    qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
@@ -66,7 +77,7 @@ kernel timings, see ``main``):
 6. the ``kernels`` line: launches, error, times (``ms`` and
    ``device_ms``, the plain version's and the library call's beside) and
    bound of each kernel, the launches counted over the run of its own
-   path, and over each path of phases 3-4g (``launches_by_path``);
+   path, and over each path of phases 3-4j (``launches_by_path``);
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of the JAX package, and exits non-zero without a result
@@ -745,14 +756,28 @@ def _profile(push_all, dev):
 
 def _run_engine(dev, requests, n_profiled=2, **kw):
     """Stream ``requests`` through a fresh engine (the main path's
-    configuration, updated by ``kw``): all but the last ``n_profiled``
-    timed (pushes and drain, host clock, ending in a device sync), the
-    last ones under the profiler.  Returns the drained pairs and row masks
-    of the whole stream."""
+    configuration, updated by ``kw``): see :func:`_drive_engine`."""
     from repro_torch.engine import EngineConfig, StreamEngine
 
     cfg = dict(theta=THETA, lam=LAM, capacity=CAPACITY, d=D, micro_batch=MICRO)
-    eng = StreamEngine(EngineConfig(**{**cfg, **kw}), device=dev)
+    return _drive_engine(StreamEngine(EngineConfig(**{**cfg, **kw}), device=dev),
+                         dev, requests, n_profiled)
+
+
+def _ring_counts(state) -> dict:
+    """Each ring's cursor, live slots and overflow (one ring, or one per
+    shard of a sharded window)."""
+    rings = getattr(state, "shards", (state,))
+    return {"cursor": [int(r.cursor.item()) for r in rings],
+            "live_slots": [int((r.uids >= 0).sum().item()) for r in rings],
+            "window_overflow": [int(r.overflow.item()) for r in rings]}
+
+
+def _drive_engine(eng, dev, requests, n_profiled=2):
+    """Stream ``requests`` through ``eng``: all but the last ``n_profiled``
+    timed (pushes and drain, host clock, ending in a device sync), the
+    last ones under the profiler.  Returns the drained pairs and row masks
+    of the whole stream, and closes the engine."""
 
     def push_all(reqs):
         for v, t in reqs:
@@ -774,7 +799,8 @@ def _run_engine(dev, requests, n_profiled=2, **kw):
         ua, ub, sc, mask = (np.concatenate(x) for x in zip(*parts))
         return {"pairs": (ua, ub, sc), "mask": mask, "seconds": seconds,
                 "timed_items": sum(len(v) for v, _ in timed), "profile": prof,
-                "stats": eng.stats(), "metrics": eng.metrics()}
+                "stats": eng.stats(), "metrics": eng.metrics(),
+                "rings": _ring_counts(eng.state)}
     finally:
         eng.close()
 
@@ -931,11 +957,13 @@ def _count_launches(fn):
     return out, {name: c.launches for name, c in counters.items()}
 
 
-def _expect_launches(label, launches, n_micro, window_joins=True):
+def _expect_launches(label, launches, n_micro, window_joins=True, shards=1):
     """The kernel route's launches: two tile joins (window and self) and
-    one gate a micro-batch; the scan launches the gate alone."""
-    want = ({"sssj_cand": 2 * n_micro, "gate_ub": n_micro, "sssj_dense": 0}
-            if window_joins else {"sssj_cand": 0, "gate_ub": n_micro, "sssj_dense": 0})
+    one gate a micro-batch on each shard; the scan launches the gate
+    alone."""
+    n = n_micro * shards
+    want = ({"sssj_cand": 2 * n, "gate_ub": n, "sssj_dense": 0}
+            if window_joins else {"sssj_cand": 0, "gate_ub": n, "sssj_dense": 0})
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
 
@@ -1338,6 +1366,17 @@ ISO_TRAFFIC = dict(n_slow=7, rounds=6, burst=17000, d=D, repost_gap=60.0)
 # items still fill 4 strips of its sub-ring)
 SVC_MT_MICRO = 256
 SVC_MT_ITEMS = 65536
+# the sharded engine (4h-4j): the main path's window as four shards of
+# 65,536 slots on one card; the ring join's global batch of 512 (128 rows a
+# shard), RING_WARM steps to fill every ring, then RING_STEPS held against
+# their oracles; the sharded service at micro-batch 128 on a prefix of 4e's
+# stream short enough to keep the phase near 40 s
+SHARDS = 4
+RING_BATCH = 512
+RING_WARM = CAPACITY // RING_BATCH
+RING_STEPS = 4
+SHARD_SVC_MICRO = 128
+SHARD_SVC_ITEMS = 32768
 
 
 def _mt_stream():
@@ -1410,12 +1449,7 @@ def _run_runtime(dev, rt, submits, n_profiled=MT_PROFILED_FLUSHES,
             rt.flush(final=True)
         drain()
 
-    # an engine is freed by the cycle collector (its registry holds its
-    # collector): collect earlier runs' windows before the peak is reset
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    _reset_peak(dev)
     n_timed = len(groups) - n_profiled
     t0 = time.monotonic()
     run(0, n_timed, final=not n_profiled)
@@ -1430,7 +1464,7 @@ def _run_runtime(dev, rt, submits, n_profiled=MT_PROFILED_FLUSHES,
         spans0 = rt.spans_dispatched
         _, prof = _profile(lambda: run(n_timed, len(groups), final=True), dev)
         n_prof_micro = (rt.spans_dispatched - spans0) * rt.span
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+    peak_gib = _peak_gib(dev)
     per = {k: tuple(np.concatenate(x) for x in zip(*recs)) for k, recs in got.items()}
     snap = rt.registry.snapshot()
     out = {"per": per, "seconds": seconds, "timed_items": timed_items,
@@ -1667,6 +1701,48 @@ def phase_isolation(dev, smi) -> dict:
     return launches
 
 
+def _local_pairs(run, tenant) -> dict:
+    """A runtime run's pairs per tenant as ``{(a, b): score}`` in the
+    tenant's local uids (its items numbered in admission order)."""
+    local = np.zeros(len(tenant), np.int64)
+    for k in np.unique(tenant).tolist():
+        local[tenant == k] = np.arange(int((tenant == k).sum()))
+    return {k: {(int(local[a]), int(local[b])): float(s)
+                for a, b, s in zip(*(x.tolist() for x in rec[:3]))}
+            for k, rec in run["per"].items()}
+
+
+def _check_service_groups(label, svc, pairs, want, thetas) -> tuple:
+    """A multi-tenant service's flushed pairs (``{tenant: [(a, b, score)]}``
+    in local uids) against another run's (``{tenant: {(a, b): score}}``):
+    equal outside the ε-band of each tenant's θ, common scores within
+    ``FLOAT_TOL``, and the service's groups those of the other run's
+    pairs with the band pairs as the service drained them.  Returns the
+    band documents by tenant, the band pairs, the largest score error and
+    the groups."""
+    band_docs, n_band, err, n_groups = {}, 0, 0.0, 0
+    for k, theta in enumerate(thetas):
+        got = {(a, b): s for a, b, s in pairs.get(k, [])}
+        w = want.get(k, {})
+        differ = got.keys() ^ w.keys()
+        outside = [p for p in differ if abs({**got, **w}[p] - theta) > BAND]
+        if outside:
+            raise AssertionError(f"{label} tenant {k}: pairs differ outside the "
+                                 f"ε-band: {outside[:5]}")
+        err = max([err] + [abs(got[p] - w[p]) for p in got.keys() & w.keys()])
+        n_band += len(differ)
+        want_groups = _groups([p for p in w if p not in differ]
+                              + [p for p in got if p in differ])
+        if svc.duplicate_groups(k) != want_groups:
+            raise AssertionError(f"{label} tenant {k}: groups differ from the other run's")
+        if differ:
+            band_docs[k] = sorted({x for p in differ for x in p})
+        n_groups += len(want_groups)
+    if err > FLOAT_TOL:
+        raise AssertionError(f"{label}: scores differ by {err}")
+    return band_docs, n_band, err, n_groups
+
+
 def phase_mt_service(dev, smi, stream) -> dict:
     """4g: ``MultiTenantSSSJService(micro_batch=256)`` (256 x 256 tiles:
     ``cand_big_kernel``), strict ``tile_k`` 65,536, quota eviction, on the
@@ -1687,10 +1763,7 @@ def phase_mt_service(dev, smi, stream) -> dict:
     vecs, ts, tenant = (x[:SVC_MT_ITEMS] for x in stream)
     submits = _submits(vecs, ts, tenant)
     table = TenantTable(MT_THETAS, MT_LAMS)
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    _reset_peak(dev)
     svc = MultiTenantSSSJService(table, dim=D, capacity=CAPACITY, span=MT_SPAN,
                                  micro_batch=SVC_MT_MICRO, eviction="quota", device=dev)
     cfg = svc.runtime.cfg
@@ -1718,7 +1791,7 @@ def phase_mt_service(dev, smi, stream) -> dict:
         return seconds, prof, (svc.runtime.spans_dispatched - spans0) * MT_SPAN
 
     (seconds, prof, n_prof_micro), launches = _count_launches(go)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+    peak_gib = _peak_gib(dev)
     st = svc.stats()
     _expect_launches("mt_service", launches, st["spans_dispatched"] * MT_SPAN)
     timed_items = sum(len(v) for g in groups[:-n_prof] for _, v, _ in g)
@@ -1729,32 +1802,8 @@ def phase_mt_service(dev, smi, stream) -> dict:
                                 span=MT_SPAN, device=dev),
         [(k, _unit_rows(np.asarray(v, np.float32)), t) for k, v, t in submits],
         n_profiled=0, flush_rows=SVC_MT_MICRO * MT_SPAN)
-    local = np.zeros(len(tenant), np.int64)
-    for k in range(MT_TENANTS):
-        local[tenant == k] = np.arange(int((tenant == k).sum()))
-    band_docs, n_band, err, n_groups = {}, 0, 0.0, 0
-    for k, theta in enumerate(MT_THETAS):
-        ua, ub, sc, _ = oracle["per"][k]
-        want = {(int(local[a]), int(local[b])): float(s)
-                for a, b, s in zip(ua.tolist(), ub.tolist(), sc.tolist())}
-        got = {(a, b): s for a, b, s in pairs[k]}
-        differ = got.keys() ^ want.keys()
-        outside = [p for p in differ if abs({**got, **want}[p] - theta) > BAND]
-        if outside:
-            raise AssertionError(f"mt_service tenant {k}: pairs differ outside the "
-                                 f"ε-band: {outside[:5]}")
-        err = max([err] + [abs(got[p] - want[p]) for p in got.keys() & want.keys()])
-        n_band += len(differ)
-        # groups: the oracle's pairs with the band pairs as the service drained them
-        want_groups = _groups([p for p in want if p not in differ]
-                              + [p for p in got if p in differ])
-        if svc.duplicate_groups(k) != want_groups:
-            raise AssertionError(f"mt_service tenant {k}: groups differ from the oracle's")
-        if differ:
-            band_docs[k] = sorted({x for p in differ for x in p})
-        n_groups += len(want_groups)
-    if err > FLOAT_TOL:
-        raise AssertionError(f"mt_service: scores differ by {err}")
+    band_docs, n_band, err, n_groups = _check_service_groups(
+        "mt_service", svc, pairs, _local_pairs(oracle, tenant), MT_THETAS)
     with open(ROOT / "tests" / "metrics_schema.json") as f:
         pinned = json.load(f)
     schema = {re.sub(r"tenant/\d+/", "tenant/<k>/", k): v
@@ -1804,6 +1853,303 @@ def phase_mt_service(dev, smi, stream) -> dict:
            "stats": st, "profile": prof}
     svc.runtime.close()
     emit(rec)
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# phases 4h-4j: the sharded engine on a single-process mesh
+# --------------------------------------------------------------------- #
+def _shard_mesh(dev):
+    """``SHARDS`` window shards over the visible cards (``cuda:i % n``;
+    with one card all four share it), or over the CPU in a rehearsal."""
+    import torch
+    from repro_torch.launch import make_mesh_for
+
+    if dev.type == "cuda":
+        n = torch.cuda.device_count()
+        devices = [f"cuda:{i % n}" for i in range(SHARDS)]
+    else:
+        devices = [dev] * SHARDS
+    mesh = make_mesh_for((SHARDS,), ("data",), devices=devices)
+    return mesh, [str(d) for d in mesh.devices_along("data")]
+
+
+def _reset_peak(dev) -> None:
+    """Reset the peak-memory reading.  An engine is freed by the cycle
+    collector (its registry holds its collector): earlier runs' windows
+    are collected first."""
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+
+
+def phase_sharded_engine(dev, smi, requests, kern_run) -> dict:
+    """4h: ``ShardedStreamEngine`` with four shards of 65,536 slots (phase
+    3's global window) on phase 3's stream: its drained pairs, scores and
+    row masks must be phase 3's kernel route's (outside the ε-band), with
+    nothing dropped or overwritten, and the shards' cursors, live slots
+    and overflow must sum to the single ring's."""
+    from repro_torch.engine import EngineConfig, ShardedStreamEngine
+
+    t0 = time.monotonic()
+    mesh, placement = _shard_mesh(dev)
+    cfg = EngineConfig(theta=THETA, lam=LAM, capacity=CAPACITY // SHARDS, d=D,
+                       micro_batch=MICRO)
+    _reset_peak(dev)
+    # one request under the profiler: a trace of four shards' launches
+    # takes the profiler far longer to digest than phase 3's
+    run, launches = _count_launches(
+        lambda: _drive_engine(ShardedStreamEngine(cfg, mesh), dev, requests, n_profiled=1))
+    peak_gib = _peak_gib(dev)
+    n_micro = _n_micro(requests, MICRO)
+    _expect_launches("sharded engine", launches, n_micro, shards=SHARDS)
+    band, score_err = _check_same_emission(run, kern_run, "sharded engine vs main path")
+    st = run["stats"]
+    if st["pairs_dropped"] or st["window_overflow"] or st["n_items"] != N_ITEMS:
+        raise AssertionError(f"sharded engine dropped or overflowed: {st}")
+    sums = {k: sum(v) for k, v in run["rings"].items()}
+    if sums != {k: sum(v) for k, v in kern_run["rings"].items()}:
+        raise AssertionError(f"sharded rings {run['rings']} do not sum to the single "
+                             f"ring's {kern_run['rings']}")
+    n_prof = _n_micro(requests[-1:], MICRO)
+    emit({"phase": "sharded_engine", "nvidia_smi": smi, "shards": SHARDS,
+          "placement": placement, "shard_capacity": cfg.capacity, "d": D,
+          "n_items": N_ITEMS, "pairs": len(run["pairs"][0]), "band_pairs": len(band),
+          "max_score_err": score_err, "launches": launches,
+          "launches_per_micro_batch_kernels": {k: v / n_micro for k, v in launches.items()},
+          "profiled_micro_batches": n_prof, "peak_gib": peak_gib,
+          "rings": run["rings"], "single_ring": kern_run["rings"],
+          "sharded": _route_times(run, n_prof),
+          "main_path": _route_times(kern_run, _n_micro(requests[-2:], MICRO)),
+          "shard_stats": {k: st[k] for k in ("n_shards", "pairs_dropped_global", "shards")},
+          "port_kernels": run["profile"]["port_kernels"],
+          "phase_s": time.monotonic() - t0, "profile": run["profile"]})
+    return launches
+
+
+def _score_check(got, want, label) -> dict:
+    """Two thresholded score matrices on the card: entries above 0 in
+    both within ``FLOAT_TOL``; an entry above 0 in one only must lie
+    within ``BAND`` of θ."""
+    both = (got > 0) & (want > 0)
+    err = float((got - want).abs()[both].max()) if bool(both.any()) else 0.0
+    differ = (got > 0) != (want > 0)
+    outside = differ & ((got + want - THETA).abs() > BAND)
+    if bool(outside.any()) or err > FLOAT_TOL:
+        raise AssertionError(f"{label}: {int(outside.sum())} entries differ outside "
+                             f"the ε-band, score error {err}")
+    return {"pairs": int((want > 0).sum()), "band": int(differ.sum()), "max_err": err}
+
+
+def phase_ring_join(dev, smi, requests) -> dict:
+    """4i: ``make_distributed_join_step`` over four shards of 65,536 slots
+    with a global batch of 512 on phase 3's stream: ``RING_WARM`` steps
+    fill every ring (items/s, a profiled tail), then ``RING_STEPS`` steps
+    are each held against the same step with ``use_ref`` on a copy of the
+    state, and against the dense join of the batch over the concatenated
+    window on one device; the window scores ``(512, 262144)`` and the self
+    scores ``(512, 512)``.  Only the steps' own launches count."""
+    import torch
+    from repro_torch.core.blocked import BlockedJoinConfig
+    from repro_torch.core.distributed import (
+        DistributedJoinConfig,
+        init_sharded_window,
+        make_distributed_join_step,
+    )
+    from repro_torch.engine import ShardedWindow, WindowState
+    from repro_torch.kernels.sssj_join import sssj_join_tiles
+
+    t0 = time.monotonic()
+    mesh, placement = _shard_mesh(dev)
+    base = dict(theta=THETA, lam=LAM, capacity=CAPACITY // SHARDS, d=D)
+    step = make_distributed_join_step(DistributedJoinConfig(BlockedJoinConfig(**base)), mesh)
+    ref_step = make_distributed_join_step(
+        DistributedJoinConfig(BlockedJoinConfig(**base, use_ref=True)), mesh)
+    vecs = np.concatenate([v for v, _ in requests])
+    ts = np.concatenate([t for _, t in requests]).astype(np.float32)
+    n_steps = RING_WARM + RING_STEPS
+    if n_steps * RING_BATCH > len(vecs):
+        raise AssertionError("phase 3's stream is too short for the ring join")
+
+    def batch(s):
+        lo = s * RING_BATCH
+        return (torch.from_numpy(vecs[lo:lo + RING_BATCH]).to(dev),
+                torch.from_numpy(ts[lo:lo + RING_BATCH]).to(dev),
+                torch.arange(lo, lo + RING_BATCH, dtype=torch.int32, device=dev))
+
+    _reset_peak(dev)
+    state = init_sharded_window(DistributedJoinConfig(BlockedJoinConfig(**base)), mesh)
+    launches = {k: 0 for k in _launch_counters()}
+
+    def counted(fn):
+        out, n = _count_launches(fn)
+        for k, v in n.items():
+            launches[k] += v
+        return out
+
+    def run_steps(batches):
+        for x in batches:
+            step(state, *x)       # the scores are dropped: the checks come later
+
+    n_prof = 2
+    inputs = [batch(s) for s in range(RING_WARM - n_prof)]
+    sync(dev)
+    t1 = time.monotonic()
+    counted(lambda: run_steps(inputs))
+    sync(dev)
+    seconds = time.monotonic() - t1
+    del inputs
+    _, prof = _profile(lambda: counted(lambda: run_steps(
+        batch(s) for s in range(RING_WARM - n_prof, RING_WARM))), dev)
+
+    checks = []
+    for s in range(RING_WARM, n_steps):
+        q, tq, uq = batch(s)
+        rings = state.shards
+        whole = [torch.cat([getattr(r, f) for r in rings]) for f in ("vecs", "ts", "uids")]
+        one_win, _, _ = sssj_join_tiles(q, whole[0], tq, whole[1], uq, whole[2],
+                                        theta=THETA, lam=LAM, device=dev)
+        one_self, _, _ = sssj_join_tiles(q, q, tq, tq, uq, uq, theta=THETA, lam=LAM,
+                                         device=dev)
+        del whole
+        ref_state = ShardedWindow(tuple(
+            WindowState(*(None if x is None else x.clone() for x in r)) for r in rings))
+        _, (ref_win, ref_self) = ref_step(ref_state, q, tq, uq)
+        _, (win, self_s) = counted(lambda: step(state, q, tq, uq))
+        checks.append({
+            "win_vs_use_ref": _score_check(win, ref_win, f"ring step {s} vs use_ref"),
+            "win_vs_one_device": _score_check(win, one_win, f"ring step {s} vs one device"),
+            "self_vs_use_ref": _score_check(self_s, ref_self, f"ring self {s} vs use_ref"),
+            "self_vs_one_device": _score_check(self_s, one_self, f"ring self {s} vs one device")})
+        for a, b in zip(state.shards, ref_state.shards):
+            if not (torch.equal(a.uids, b.uids) and torch.equal(a.cursor, b.cursor)
+                    and torch.equal(a.overflow, b.overflow)):
+                raise AssertionError(f"ring step {s}: the window differs from use_ref's")
+        del ref_state, ref_win, ref_self, one_win, one_self, win, self_s
+    want = {"sssj_dense": n_steps * (SHARDS * SHARDS + SHARDS), "sssj_cand": 0, "gate_ub": 0}
+    if launches != want:
+        raise AssertionError(f"ring join: launches {launches}, expected {want}")
+    if not any(c["win_vs_one_device"]["pairs"] for c in checks):
+        raise AssertionError("ring join: the checked steps scored no pair")
+    timed_items = (RING_WARM - n_prof) * RING_BATCH
+    emit({"phase": "ring_join", "nvidia_smi": smi, "shards": SHARDS, "placement": placement,
+          "shard_capacity": base["capacity"], "d": D, "batch": RING_BATCH,
+          "warm_steps": RING_WARM, "checked_steps": RING_STEPS, "checks": checks,
+          "launches": launches, "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+          "timed_items": timed_items, "seconds": seconds,
+          "items_per_s": timed_items / seconds, "peak_gib": _peak_gib(dev),
+          "per_step": {"launches": prof["device_launches"] / n_prof,
+                       "device_ms": prof["device_busy_ms"] / n_prof,
+                       "wall_ms": prof["wall_ms"] / n_prof,
+                       "device_busy_share": prof["device_busy_share"]},
+          "port_kernels": prof["port_kernels"],
+          "phase_s": time.monotonic() - t0, "profile": prof})
+    return launches
+
+
+def phase_sharded_service(dev, smi, stream) -> dict:
+    """4j: ``MultiTenantSSSJService(mesh=4 shards)`` at a total capacity
+    of 262,144 and micro-batch 128 under ``oldest`` eviction, on the first
+    ``SHARD_SVC_ITEMS`` items of 4e's stream, flushed whenever a span's
+    rows were admitted, the last flushes under the profiler: its groups
+    per tenant against a ``join_impl="dense"`` runtime on the same mesh,
+    and against the single-device service's on the same submits."""
+    import dataclasses
+
+    from repro_torch.runtime import MultiTenantRuntime, ShardedFacade, TenantTable
+    from repro_torch.serving import MultiTenantSSSJService
+
+    t0 = time.monotonic()
+    mesh, placement = _shard_mesh(dev)
+    vecs, ts, tenant = (x[:SHARD_SVC_ITEMS] for x in stream)
+    submits = _submits(vecs, ts, tenant)
+    table = TenantTable(MT_THETAS, MT_LAMS)
+    groups = _flush_groups(submits, SHARD_SVC_MICRO * MT_SPAN)
+    n_prof = 2       # 8 micro-batches: the profiler digests four shards' launches slowly
+    kw = dict(dim=D, capacity=CAPACITY, span=MT_SPAN, micro_batch=SHARD_SVC_MICRO,
+              eviction="oldest", device=dev)
+
+    def serve(svc, profiled):
+        pairs = {k: [] for k in range(MT_TENANTS)}
+
+        def run(lo, hi, final):
+            for g in groups[lo:hi]:
+                for k, v, t in g:
+                    svc.submit(k, v, t)
+                for k, ps in svc.flush(final=final).items():
+                    pairs[k].extend(ps)
+
+        n_timed = len(groups) - (n_prof if profiled else 0)
+        sync(dev)
+        t1 = time.monotonic()
+        run(0, n_timed, not profiled)
+        sync(dev)
+        seconds = time.monotonic() - t1
+        prof, n_prof_micro = None, 0
+        if profiled:
+            spans0 = svc.runtime.spans_dispatched
+            _, prof = _profile(lambda: run(n_timed, len(groups), True), dev)
+            n_prof_micro = (svc.runtime.spans_dispatched - spans0) * MT_SPAN
+        timed_items = sum(len(v) for g in groups[:n_timed] for _, v, _ in g)
+        return {"pairs": pairs, "seconds": seconds, "items_per_s": timed_items / seconds,
+                "timed_items": timed_items, "profile": prof, "n_prof_micro": n_prof_micro}
+
+    _reset_peak(dev)
+    svc = MultiTenantSSSJService(table, mesh=mesh, **kw)
+    run, launches = _count_launches(lambda: serve(svc, True))
+    peak_gib = _peak_gib(dev)
+    st = svc.stats()
+    _expect_launches("sharded service", launches, st["spans_dispatched"] * MT_SPAN,
+                     shards=SHARDS)
+    cfg = svc.runtime.cfg
+    oracle = _run_runtime(
+        dev, MultiTenantRuntime(dataclasses.replace(cfg, join_impl="dense"), table,
+                                span=MT_SPAN, engine=ShardedFacade(mesh), device=dev),
+        [(k, _unit_rows(np.asarray(v, np.float32)), t) for k, v, t in submits],
+        n_profiled=0, flush_rows=SHARD_SVC_MICRO * MT_SPAN)
+    band_docs, n_band, err, n_groups = _check_service_groups(
+        "sharded service vs dense oracle", svc, run["pairs"], _local_pairs(oracle, tenant),
+        MT_THETAS)
+    one = MultiTenantSSSJService(table, **kw)
+    single = serve(one, False)
+    one_pairs = {k: {(a, b): s for a, b, s in ps} for k, ps in single["pairs"].items()}
+    one_band, n_one_band, one_err, _ = _check_service_groups(
+        "sharded service vs one device", svc, run["pairs"], one_pairs, MT_THETAS)
+    if st["pairs_dropped"] or st["window_overflow"] or not n_groups:
+        raise AssertionError(f"sharded service dropped, overflowed or grouped nothing: {st}")
+    prof, n_micro = run["profile"], run["n_prof_micro"]
+    emit({"phase": "sharded_service", "nvidia_smi": smi, "shards": SHARDS,
+          "placement": placement, "n_items": len(vecs), "capacity": CAPACITY,
+          "shard_capacity": cfg.capacity, "micro_batch": SHARD_SVC_MICRO,
+          "tile_k": cfg.tile_k, "launches": launches,
+          "micro_batches": st["spans_dispatched"] * MT_SPAN,
+          "span_fill_micro_batches": st["empty_micro_batches"],
+          "seconds": run["seconds"], "timed_items": run["timed_items"],
+          "items_per_s": run["items_per_s"], "peak_gib": peak_gib,
+          "dense_oracle_items_per_s": oracle["items_per_s"],
+          "one_device_items_per_s": single["items_per_s"],
+          "per_micro_batch": {"launches": prof["device_launches"] / n_micro,
+                              "device_ms": prof["device_busy_ms"] / n_micro,
+                              "wall_ms": prof["wall_ms"] / n_micro,
+                              "device_busy_share": prof["device_busy_share"]},
+          "profiled_micro_batches": n_micro, "port_kernels": prof["port_kernels"],
+          "pairs": sum(map(len, run["pairs"].values())), "groups": n_groups,
+          "band_pairs": n_band, "band_documents": band_docs, "max_score_err": err,
+          "one_device_band_pairs": n_one_band, "one_device_max_score_err": one_err,
+          "latency": _latency(svc.snapshot()),
+          "shard_stats": {k: st[k] for k in ("n_shards", "pairs_dropped_global", "shards")},
+          "stats": st, "phase_s": time.monotonic() - t0, "profile": prof})
+    for s in (svc, one):
+        s.runtime.close()
     return launches
 
 
@@ -2043,6 +2389,7 @@ def main() -> int:
         by_path["scan_route"] = phase_scan_route(dev, requests, main_runs, smi)
         by_path["service"] = phase_service(dev, requests, smi)
         by_path["blocked"] = phase_blocked(dev, requests, main_runs, smi)
+        kern_run = main_runs["kernel"]
         del main_runs
         by_path["dedup"] = phase_dedup(dev, smi)
         t0 = time.monotonic()
@@ -2050,7 +2397,10 @@ def main() -> int:
         by_path["runtime"] = phase_runtime(dev, smi, stream, time.monotonic() - t0)
         by_path["isolation"] = phase_isolation(dev, smi)
         by_path["mt_service"] = phase_mt_service(dev, smi, stream)
-        del stream
+        by_path["sharded_engine"] = phase_sharded_engine(dev, smi, requests, kern_run)
+        by_path["ring_join"] = phase_ring_join(dev, smi, requests)
+        by_path["sharded_service"] = phase_sharded_service(dev, smi, stream)
+        del stream, kern_run
         torch.cuda.empty_cache()     # the child's phases need the card's memory
         kern, flash = run_kernel_phases(smi)
     except Exception as exc:  # report the failing phase, then fail

@@ -12,7 +12,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["ieee_f32", "resolve_device"]
+__all__ = ["canonical_device", "ieee_f32", "resolve_device"]
 
 DeviceLike = Optional[Union[str, torch.device]]
 
@@ -27,6 +27,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def canonical_device(device: DeviceLike = None) -> torch.device:
+    """:func:`resolve_device` with a CUDA device's index filled in (the
+    current card for a bare ``"cuda"``), so that equal devices compare
+    equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

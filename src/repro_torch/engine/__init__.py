@@ -5,8 +5,19 @@ from .engine import (  # noqa: F401
     StreamEngineBase,
     init_telemetry,
     make_batch_step,
+    host_lanes,
     make_micro_step,
     pad_request,
+)
+from .sharded import (  # noqa: F401
+    ShardedStreamEngine,
+    ShardedWindow,
+    init_sharded_window,
+    make_sharded_batch_step,
+    shard_metrics,
+    shard_stats,
+    shard_view,
+    window_axis,
 )
 from .window import (  # noqa: F401
     WindowState,

@@ -14,7 +14,9 @@ runs them in a host loop on one CUDA stream (the reference's
 
 The same micro-step serves the multi-tenant runtime
 (``repro_torch.runtime``), which adds the stream-id lane and per-row
-thresholds (:func:`make_micro_step`'s ``tenant_lookup``).
+thresholds (:func:`make_micro_step`'s ``tenant_lookup``), and each shard
+of the sharded engine (:mod:`repro_torch.engine.sharded`), which keeps
+the self join's pairs on one shard (``self_mask``).
 
 With ``emit_dense=True`` (the reference's oracle path) steps 1–2 are
 instead two dense tile joins, whose ``(mb, capacity + mb)`` score matrix
@@ -55,6 +57,7 @@ __all__ = [
     "EngineTelemetry",
     "StreamEngine",
     "StreamEngineBase",
+    "host_lanes",
     "init_telemetry",
     "make_batch_step",
     "make_micro_step",
@@ -72,6 +75,8 @@ class EngineConfig:
     micro_batch: int = 128       # step size; requests are padded up
     max_pairs: int = 4096        # compacted-emission capacity per micro-batch
     tile_k: int = 256            # level-1 candidates kept per kernel tile
+    shard_k: Optional[int] = None  # per-shard merge capacity (sharded
+    #                                engine); None = max_pairs
     block_q: int = 128
     block_w: int = 128
     chunk_d: int = 128
@@ -97,6 +102,8 @@ class EngineConfig:
             if (isinstance(v, bool) or not isinstance(v, (int, np.integer))
                     or v < 1):
                 raise ValueError(f"{name} must be a positive int, got {v!r}")
+        if self.shard_k is not None and self.shard_k < 1:
+            raise ValueError(f"shard_k must be ≥ 1, got {self.shard_k}")
         if self.micro_batch > self.capacity:
             raise ValueError(
                 f"micro_batch ({self.micro_batch}) exceeds window capacity "
@@ -220,6 +227,15 @@ def init_telemetry(device: DeviceLike = None) -> EngineTelemetry:
     ))
 
 
+def host_lanes(x) -> np.ndarray:
+    """A device counter as a host array: a tensor as it is, or a tuple of
+    per-shard tensors (each on its shard's device, as the sharded engine
+    keeps them) stacked along a leading shard axis."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.stack([v.cpu().numpy() for v in x])
+
+
 def pad_request(vecs, ts, next_uid: int, micro_batch: int):
     """Assign uids and pad a request to a micro-batch multiple (pad rows
     carry ``uid = -1`` so the order mask silences them; pad timestamps
@@ -255,6 +271,7 @@ def pad_request(vecs, ts, next_uid: int, micro_batch: int):
 def make_micro_step(
     cfg: EngineConfig,
     ingest: Callable,
+    self_mask: Optional[Callable] = None,
     tenant_lookup: Optional[Callable] = None,
 ):
     """The per-micro-batch step: ``(state, telem, q, tq, uq, n_valid[, sq])
@@ -262,7 +279,10 @@ def make_micro_step(
     updated in place, ``n_valid`` is a host int.
 
     ``ingest(state, q, tq, uq, n_valid, t_max[, sq])`` writes the
-    micro-batch into the ring, in place.  With ``tenant_lookup`` (the
+    micro-batch (or a shard's part of it) into the ring, in place.
+    ``self_mask`` maps the self join's candidates before the merge
+    (``PairCandidates → PairCandidates``; the sharded engine keeps them on
+    one shard only); the row mask keeps them.  With ``tenant_lookup`` (the
     multi-tenant runtime) the step takes the stream-id lane ``sq (mb,)``:
     the window join gets ``sq`` against the ring's ``sids``, the self join
     ``sq`` against itself, and ``tenant_lookup(sq) → (theta_q, lam_q) |
@@ -271,6 +291,8 @@ def make_micro_step(
     kw = cfg.join_kwargs
     ckw = cfg.candidate_kwargs
     multi = tenant_lookup is not None
+    if cfg.emit_dense and self_mask is not None:
+        raise ValueError("the emit_dense oracle path is single-device only")
     if cfg.emit_dense and multi:
         raise ValueError(
             "the emit_dense oracle path is single-tenant; multi-tenant runs "
@@ -305,8 +327,9 @@ def make_micro_step(
         )
         js = sssj_join_candidates(q, q, tq, tq, uq, uq, device=dev, **ckw,
                                   **self_kw)
+        cs = js.cands if self_mask is None else self_mask(js.cands)
         buf = merge_candidates(
-            concat_candidates(jw.cands, js.cands), max_pairs=cfg.max_pairs
+            concat_candidates(jw.cands, cs), max_pairs=cfg.max_pairs
         )
         return buf, jw.row_mask | js.row_mask, jw.iters, jw.gate_stats
 
@@ -403,6 +426,11 @@ class StreamEngineBase:
         self.registry = registry if registry is not None else MetricsRegistry()
         self.registry.register_collector(self._publish_metrics)
 
+    def _global_capacity(self) -> int:
+        """Window slots over all shards: what the dense path would score
+        each query against."""
+        return self.cfg.capacity
+
     # ------------------------------------------------------------------ #
     def push(self, vecs: np.ndarray, ts: np.ndarray) -> np.ndarray:
         """Feed one request batch; returns the uids assigned to it.  Does
@@ -427,7 +455,7 @@ class StreamEngineBase:
         # score matrices per micro-batch
         mb = self.cfg.micro_batch
         self.bytes_dense_equiv += qs.shape[0] * 4 * (
-            mb * self.cfg.capacity + mb * mb
+            mb * self._global_capacity() + mb * mb
         )
         return uq
 
@@ -525,24 +553,29 @@ class StreamEngineBase:
     # ------------------------------------------------------------------ #
     @property
     def overflow(self) -> int:
-        """Live ring slots overwritten (window undersized)."""
-        return int(self.state.overflow.item())
+        """Live ring slots overwritten (window undersized), all shards."""
+        return int(host_lanes(self.state.overflow).sum())
 
     @property
     def pairs_dropped(self) -> int:
         """Pairs lost to emission capacity at any level."""
-        return int(self.telem.dropped.item() + self.telem.dropped_tile.item())
+        t = self.telem
+        return int(host_lanes(t.dropped).sum() + host_lanes(t.dropped_tile).sum())
 
     @property
     def overflow_by_tenant(self) -> Optional[np.ndarray]:
-        """Live overwrites per victim stream ``(n_lanes,)``; ``None`` when
-        the state carries no stream lanes."""
+        """Live overwrites per victim stream ``(n_lanes,)``, summed over
+        shards; ``None`` when the state carries no stream lanes."""
         lo = self.state.lane_overflow
-        return None if lo is None else lo.cpu().numpy()
+        if lo is None:
+            return None
+        lo = host_lanes(lo)
+        return lo.reshape(-1, lo.shape[-1]).sum(axis=0)
 
     def _publish_metrics(self, reg: MetricsRegistry) -> None:
-        """Snapshot-time collector: engine counters under ``engine/…``."""
-        t = EngineTelemetry(*(int(x.item()) for x in self.telem))
+        """Snapshot-time collector: engine counters under ``engine/…``,
+        each summed over its lanes (shards)."""
+        t = EngineTelemetry(*(int(host_lanes(x).sum()) for x in self.telem))
         c = reg.counter
         c("engine/n_items").set(self.n_items)
         c("engine/chunks_executed").set(t.chunks)

@@ -5,10 +5,10 @@
     coalescer with per-tenant backpressure and queue telemetry;
   * :mod:`~repro_torch.runtime.runtime` — :class:`MultiTenantRuntime`:
     the stream-tagged engine facade (fixed-span dispatch, per-tenant
-    drain, admission→emission latency).
+    drain, admission→emission latency) on one device
+    (:class:`SingleDeviceFacade`) or a device mesh (:class:`ShardedFacade`).
 
-The reference's ``ShardedFacade`` and ``FusedEmbedder`` are not ported
-yet; they come with the sharded engine and the LM stack.
+The reference's ``FusedEmbedder`` comes with the LM stack.
 """
 
 from .router import (  # noqa: F401
@@ -19,6 +19,7 @@ from .router import (  # noqa: F401
 from .runtime import (  # noqa: F401
     EngineFacade,
     MultiTenantRuntime,
+    ShardedFacade,
     SingleDeviceFacade,
     make_tenant_batch_step,
 )

@@ -21,9 +21,10 @@ engine:
 
 The reference's ``lax.scan`` over a span is a host loop of micro-steps on
 one CUDA stream (:func:`make_tenant_batch_step`).  The :class:`EngineFacade`
-seam keeps the runtime engine-agnostic; the port has the single-device
-facade (the reference's ``ShardedFacade`` and ``FusedEmbedder`` wait for
-the sharded engine and the LM stack).
+seam keeps the runtime engine-agnostic: :class:`SingleDeviceFacade` runs
+one ring on one device, :class:`ShardedFacade` spreads the ring over a
+device mesh (:mod:`repro_torch.engine.sharded`), with the same emissions
+(the reference's ``FusedEmbedder`` waits for the LM stack).
 
 Determinism: uids are assigned at admission (global arrival order), the
 router preserves that order exactly, and the engine is invariant to
@@ -40,7 +41,7 @@ from typing import Deque, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import DeviceLike
+from .._device import DeviceLike, canonical_device, resolve_device
 from ..engine.engine import (
     EngineConfig,
     StreamEngineBase,
@@ -48,7 +49,16 @@ from ..engine.engine import (
     make_micro_step,
     stack_outputs,
 )
+from ..engine.sharded import (
+    init_sharded_telemetry,
+    init_sharded_window,
+    make_sharded_batch_step,
+    shard_metrics,
+    shard_view,
+    window_axis,
+)
 from ..engine.window import init_window, push_with_overflow
+from ..launch.mesh import Mesh
 from ..obs import SpanTracer, merge_disjoint, publish_flat
 from .router import RequestRouter, TenantBackpressure
 from .tenants import TenantTable
@@ -56,6 +66,7 @@ from .tenants import TenantTable
 __all__ = [
     "EngineFacade",
     "MultiTenantRuntime",
+    "ShardedFacade",
     "SingleDeviceFacade",
     "TenantBackpressure",
     "make_tenant_batch_step",
@@ -74,9 +85,13 @@ class EngineFacade:
     ``sids`` lane and per-tenant policy lanes, and the telemetry),
     :meth:`make_step` (the stream-tagged batch step ``(state, telem, qs,
     tqs, uqs, sqs, nvs) → (bufs, masks)``), :meth:`global_capacity` (the
-    dense-equivalent traffic accounting) and :meth:`metrics_extra`
-    (engine-specific counters, published flat into the registry).
+    dense-equivalent traffic accounting), :meth:`metrics_extra`
+    (engine-specific counters, published flat into the registry) and
+    :meth:`home_device` (where requests are uploaded and results drained).
     """
+
+    def home_device(self, device: DeviceLike) -> torch.device:
+        return resolve_device(device)
 
     def init_state(self, cfg: EngineConfig, table: TenantTable,
                    device: torch.device):
@@ -119,6 +134,53 @@ class SingleDeviceFacade(EngineFacade):
         return cfg.capacity
 
 
+class ShardedFacade(EngineFacade):
+    """Sharded facade: one ring shard per device along the window axis.
+
+    ``cfg.capacity`` stays the per-shard ring size (global window =
+    ``capacity × n_shards``, as for :class:`~repro_torch.engine.sharded
+    .ShardedStreamEngine`) and ``cfg.max_pairs`` the global budget per
+    micro-batch; ``cfg.micro_batch`` must divide by the shard count (the
+    round-robin deal).  The runtime uploads to and drains from the first
+    shard's device.
+    """
+
+    def __init__(self, mesh: Mesh) -> None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(
+                f"mesh must be a repro_torch Mesh (launch.make_mesh_for), "
+                f"got {type(mesh).__name__}"
+            )
+        self.mesh = mesh
+        self.axis = window_axis(mesh)
+        self.n_shards = int(mesh.shape[self.axis])
+
+    def home_device(self, device: DeviceLike) -> torch.device:
+        home = self.mesh.devices_along(self.axis)[0]
+        if device is not None and canonical_device(device) != home:
+            raise ValueError(
+                f"the sharded runtime runs from its mesh's first device "
+                f"{home}, not {device}"
+            )
+        return home
+
+    def init_state(self, cfg, table, device):
+        return init_sharded_window(cfg, self.mesh, self.axis,
+                                   n_lanes=table.n_tenants)
+
+    def init_telemetry(self, cfg, device):
+        return init_sharded_telemetry(self.mesh, self.axis)
+
+    def make_step(self, cfg, table, device):
+        return make_sharded_batch_step(cfg, self.mesh, self.axis, table=table)
+
+    def global_capacity(self, cfg: EngineConfig) -> int:
+        return cfg.capacity * self.n_shards
+
+    def metrics_extra(self, state, telem) -> dict:
+        return shard_metrics(state, telem, self.n_shards)
+
+
 def make_tenant_batch_step(cfg: EngineConfig, table: TenantTable,
                            device: DeviceLike = None):
     """The multi-tenant request step (single device): ``(state, telem, qs,
@@ -156,7 +218,9 @@ class MultiTenantRuntime(StreamEngineBase):
     (``flush(final=True)`` also pads out a trailing partial micro-batch);
     ``drain_by_tenant()`` returns each tenant's emitted pairs.  The
     inherited :meth:`drain_arrays` / :meth:`stats` work on the global
-    stream.  The engine runs on ``device`` (``None`` = CUDA).
+    stream.  The engine runs on ``device`` (``None`` = CUDA), or with
+    ``engine=ShardedFacade(mesh)`` on the mesh's devices, with the same
+    emissions.
 
     Timestamps should be globally non-decreasing in admission order:
     correctness never depends on it, but window eviction and the gate are
@@ -187,10 +251,11 @@ class MultiTenantRuntime(StreamEngineBase):
             )
         if span < 1:
             raise ValueError("span must be ≥ 1")
-        super().__init__(cfg, device)
+        engine = engine or SingleDeviceFacade()
+        super().__init__(cfg, engine.home_device(device))
         self.table = table
         self.span = span
-        self.engine = engine or SingleDeviceFacade()
+        self.engine = engine
         self.router = RequestRouter(
             table.n_tenants, max_queue_per_tenant=max_queue_per_tenant
         )
@@ -471,4 +536,5 @@ class MultiTenantRuntime(StreamEngineBase):
             / max(disp, 1),
             "queue_delay_max_s": snap["router/queue_delay_max_s"],
         }
-        return merge_disjoint(self._legacy_engine_view(snap), runtime_view)
+        shard = shard_view(snap) if "engine/n_shards" in snap else {}
+        return merge_disjoint(self._legacy_engine_view(snap), shard, runtime_view)

@@ -12,8 +12,9 @@ horizon) — application #1.
 :class:`MultiTenantSSSJService` is the same loop over the multi-tenant
 runtime: many logical streams coalesce onto one engine, each with its
 own ``(θ, λ)``, and the union-find keys are namespaced ``(tenant, uid)``
-tuples.  The reference's sharded (``mesh=``) and fused-embedding
-(``fused=``) variants and its ``LMEmbedder`` are not ported yet.
+tuples; with ``mesh=`` it runs on the sharded engine.  The reference's
+fused-embedding variant (``fused=``) and its ``LMEmbedder`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 from .._device import DeviceLike
 from ..engine.engine import EngineConfig, StreamEngine
 from ..engine.window import quota_partition
-from ..runtime import MultiTenantRuntime, TenantTable
+from ..runtime import MultiTenantRuntime, ShardedFacade, TenantTable
 
 __all__ = [
     "MultiTenantSSSJService",
@@ -198,10 +199,16 @@ class MultiTenantSSSJService:
     ``eviction`` selects the window's write-slot policy: ``"oldest"``,
     ``"dead"`` (reuse expired slots first) or ``"quota"`` (a static
     partition of the window into per-tenant sub-rings, so a bursty tenant
-    only evicts its own items); ``quotas`` gives each tenant's slots
+    only evicts its own items); ``quotas`` gives each tenant's total slots
     (summing to ``capacity``; default: equal weights).  The engine runs on
-    ``device`` (``None`` = CUDA).  ``mesh`` (the sharded engine) and
-    ``fused`` (embedding inside the join) are not ported yet and raise.
+    ``device`` (``None`` = CUDA).
+
+    With ``mesh`` (a :class:`~repro_torch.launch.Mesh`) the service runs
+    on the sharded engine: ``capacity`` stays the total window, split
+    evenly over the mesh's window shards, and the emissions, so the
+    groups, are the single-device run's.  Every quota must then divide
+    by the shard count, as sub-rings are local to each shard.  ``fused``
+    (embedding inside the join) is not ported yet and raises.
     """
 
     def __init__(
@@ -220,20 +227,60 @@ class MultiTenantSSSJService:
         quotas: Optional[Sequence[int]] = None,
         device: DeviceLike = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded MultiTenantSSSJService (mesh=) comes with the "
-                "sharded engine (ROADMAP queue 1, item 7)"
-            )
         if fused is not None:
             raise NotImplementedError(
                 "fused embed→join (fused=) comes with the LM stack (ROADMAP "
                 "queue 1, item 9); embed on the host and submit vectors"
             )
+        engine = None
+        n = 1
+        if mesh is not None:
+            engine = ShardedFacade(mesh)
+            n = engine.n_shards
+            if capacity % n:
+                raise ValueError(
+                    f"capacity {capacity} not divisible by {n} window shards"
+                )
+            if micro_batch > capacity // n:
+                raise ValueError(
+                    f"micro_batch ({micro_batch}) exceeds the per-shard "
+                    f"window capacity ({capacity // n} = {capacity} total / "
+                    f"{n} shards); raise capacity to ≥ {micro_batch * n} "
+                    f"or lower micro_batch"
+                )
         if eviction == "quota" and quotas is None:
-            quotas = quota_partition(capacity, [1.0] * table.n_tenants)
-        # EngineConfig checks the quotas' values and sum, the runtime their
-        # count against the tenant table
+            # partitioned per shard and scaled back up, so the default
+            # split always divides by the shard count
+            quotas = tuple(
+                q * n
+                for q in quota_partition(capacity // n, [1.0] * table.n_tenants)
+            )
+        if quotas is not None:
+            # checked against the TOTAL capacity, before the per-shard split
+            if eviction != "quota":
+                raise ValueError(
+                    f"quotas are only meaningful under eviction='quota' "
+                    f"(got eviction={eviction!r})"
+                )
+            quotas = [int(q) for q in quotas]
+            if len(quotas) != table.n_tenants:
+                raise ValueError(
+                    f"{len(quotas)} quotas for {table.n_tenants} tenants"
+                )
+            if min(quotas) < 1:
+                raise ValueError(f"every tenant needs ≥ 1 slot, got {quotas}")
+            if sum(quotas) != capacity:
+                raise ValueError(
+                    f"quotas sum to {sum(quotas)}, not capacity {capacity}"
+                )
+            bad = [q for q in quotas if q % n]
+            if bad:
+                raise ValueError(
+                    f"quotas {bad} not divisible by {n} window shards "
+                    f"(sub-rings are local to each shard)"
+                )
+            quotas = tuple(q // n for q in quotas)
+        capacity //= n
         th0, lm0 = table.spec(0)
         cfg = EngineConfig(
             theta=th0, lam=lm0, capacity=capacity, d=dim,
@@ -241,11 +288,11 @@ class MultiTenantSSSJService:
             tile_k=tile_k or micro_batch * micro_batch,
             block_q=micro_batch, block_w=micro_batch,
             chunk_d=min(dim, 128),
-            eviction=eviction, quotas=None if quotas is None else tuple(quotas),
+            eviction=eviction, quotas=quotas,
         )
         self.runtime = MultiTenantRuntime(
             cfg, table, span=span, max_queue_per_tenant=max_queue_per_tenant,
-            device=device,
+            engine=engine, device=device,
         )
         self.table = table
         self.groups = _UnionFind()

@@ -69,6 +69,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.data.pipeline, repro_torch.obs.spans, repro_torch.obs.bridge\n"
         "import repro_torch.runtime, repro_torch.runtime.runtime\n"
         "import repro_torch.runtime.router, repro_torch.runtime.tenants\n"
+        "import repro_torch.engine.sharded, repro_torch.core.distributed\n"
+        "import repro_torch.launch, repro_torch.launch.mesh\n"
+        "import repro_torch.distributed, repro_torch.distributed.sharding\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -94,7 +97,8 @@ def test_port_sources_found():
     assert {"engine.py", "window.py", "kernel.py", "gate.py", "ops.py",
             "chip_smoke.py", "chip_turns.py", "service.py", "blocked.py",
             "pipeline.py", "spans.py", "bridge.py", "registry.py", "runtime.py",
-            "tenants.py", "router.py", "synth.py"} <= names
+            "tenants.py", "router.py", "synth.py", "sharded.py", "distributed.py",
+            "mesh.py", "sharding.py"} <= names
 
 
 def _no_gpu(monkeypatch):

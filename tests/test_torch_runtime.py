@@ -478,7 +478,7 @@ def test_multi_tenant_service_namespaced_groups(eviction):
 
 def test_multi_tenant_service_refuses_unported_variants():
     table = TenantTable.uniform(2, 0.9, 0.1)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="Mesh"):     # mesh= takes a port Mesh
         MultiTenantSSSJService(table, dim=32, mesh=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="item 9"):
         MultiTenantSSSJService(table, dim=32, fused=object(), device=CPU)
