@@ -64,6 +64,19 @@ kernel timings, see ``main``):
    j. ``MultiTenantSSSJService(mesh=...)`` with the four shards under
       ``oldest`` eviction on a prefix of 4e's stream, its groups against
       a dense-oracle runtime on the mesh and the single-device service;
+   k. the system end to end at qwen3-0.6b's full width (28 layers, d
+      1,024, random f32 weights drawn on the card): ``launch.serve``'s
+      token stream (96 requests of 128 documents x 64 tokens) through the
+      port's ``LMEmbedder`` into ``SSSJService(theta=0.85, lam=0.05,
+      dim=1024, capacity=8192, block=128)``, its pairs, groups and trends
+      against the same service on ``join_impl="dense"`` fed the same
+      embeddings, 4 documents re-embedded on the CPU;
+   l. 8 documents of 2,048 tokens through the LM, so that every layer's
+      attention runs ``flash_attn.cu``; layer 0's flash route against
+      ``chunked_causal_attention`` on the card;
+   m. ``MultiTenantSSSJService(fused=FusedEmbedder(...))`` over 8
+      tenants and 2,048 documents against the same service fed host
+      embeddings;
 5. flash attention through ``repro_torch.kernels.flash_attention`` at
    the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
    qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
@@ -77,7 +90,9 @@ kernel timings, see ``main``):
 6. the ``kernels`` line: launches, error, times (``ms`` and
    ``device_ms``, the plain version's and the library call's beside) and
    bound of each kernel, the launches counted over the run of its own
-   path, and over each path of phases 3-4j (``launches_by_path``);
+   path (flash attention's: phase 4l's), and over each path of phases
+   3-4m (``launches_by_path``), after a line with the script's total
+   seconds;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of the JAX package, and exits non-zero without a result
@@ -2154,6 +2169,368 @@ def phase_sharded_service(dev, smi, stream) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phases 4k-4m: the LM embedder and the system's serve path
+# --------------------------------------------------------------------- #
+# qwen3-0.6b at its full width (src/repro_torch/configs/qwen3_0_6b.py: 28
+# layers, d_model 1024, 16 heads, 8 kv heads, head_dim 128, d_ff 3072,
+# vocabulary 151,936, tied embeddings, qk_norm), random f32 weights drawn
+# on the card from SEED
+LM_ARCH = "qwen3-0.6b"
+# 4k: launch.serve's token stream into SSSJService(block=128): 96 requests
+# of 128 documents x 64 tokens, 25 % planted near-duplicates; 12,288
+# documents wrap the 8,192-slot window
+SERVE = dict(requests=96, batch=128, seq=64, dup_frac=0.25, seed=SEED)
+SERVE_SVC = dict(theta=0.85, lam=0.05, dim=1024, capacity=8192, block=128)
+SERVE_CPU_DOCS = 4      # re-embedded on the CPU with the same parameters
+EMBED_TOL = 1e-5        # unit embeddings, card against CPU: f32 in another order
+# 4l: documents long enough that every layer's attention runs flash_attn.cu
+LONG_DOCS, LONG_SEQ = 8, 2048
+# 4m: the fused embed→join for 8 tenants, 2,048 documents of 64 tokens
+FUSED_TENANTS = 8
+FUSED = dict(requests=16, batch=128, seq=64, dup_frac=0.25, seed=SEED + 1)
+FUSED_THETAS = tuple((0.85, 0.9)[k % 2] for k in range(FUSED_TENANTS))
+FUSED_LAMS = (0.05,) * FUSED_TENANTS
+FUSED_SVC = dict(dim=1024, capacity=8192, micro_batch=64, span=2)
+
+
+def _count_lm_launches(fn):
+    """:func:`_count_launches` with flash attention's launches beside."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel_call as flash,
+    )
+
+    flash.launches = 0
+    out, launches = _count_launches(fn)
+    return out, {**launches, "flash_attn": flash.launches}
+
+
+def _expect_lm_launches(label, launches, n_micro, flash):
+    _expect_launches(label, {k: v for k, v in launches.items() if k != "flash_attn"},
+                     n_micro)
+    if launches["flash_attn"] != flash:
+        raise AssertionError(f"{label}: flash attention launched "
+                             f"{launches['flash_attn']} times, expected {flash}")
+
+
+def lm_params(dev):
+    """qwen3-0.6b's parameters at full width, drawn on ``dev`` from a
+    seeded generator; returns ``(cfg, params, record)``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm, param_count
+    from repro_torch.models.common import Initializer
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.monotonic()
+    params = init_lm(Initializer(torch.Generator(dev).manual_seed(SEED), dev), cfg)
+    sync(dev)
+    n = param_count(cfg)
+    return cfg, params, {"arch": LM_ARCH, "params": n, "param_gib": 4 * n / 2**30,
+                         "init_s": time.monotonic() - t0}
+
+
+def phase_lm_serve(dev, smi, cfg, params, rec0) -> dict:
+    """4k: the system end to end, ``launch.serve``'s token stream through
+    the port's ``LMEmbedder`` (qwen3-0.6b at full width) into
+    ``SSSJService(theta=0.85, lam=0.05, dim=1024, capacity=8192,
+    block=128)``, strict: each request's pairs against the same service
+    on ``join_impl="dense"`` fed the same embeddings (equal outside the
+    ε-band, scores within ``FLOAT_TOL``), its groups and trends against
+    those of the oracle's pairs; 4 documents re-embedded on the CPU with
+    the same parameters within ``EMBED_TOL`` (the check that the LM's f32
+    products ran in IEEE f32, not TF32).  The last two requests run under
+    the profiler (busy share); one forward of a request's 128 documents is
+    timed on the device."""
+    import dataclasses
+
+    import torch
+    from repro_torch.engine import StreamEngine
+    from repro_torch.launch.serve import token_requests
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.serving import LMEmbedder, SSSJService, pooled_unit_embed
+
+    t_phase = time.monotonic()
+    stream, planted = token_requests(cfg.vocab_size, **SERVE)
+    emb = LMEmbedder(cfg, params, device=dev)
+    recorded = []
+
+    def embed_fn(toks):
+        out = emb(toks)
+        recorded.append(out)
+        return out
+
+    _reset_peak(dev)
+    svc = SSSJService(**SERVE_SVC, embed_fn=embed_fn, device=dev)
+    timed, profiled = stream[:-2], stream[-2:]
+
+    def run():
+        sync(dev)
+        t0 = time.monotonic()
+        pairs = [svc.submit(t, ts) for t, ts in timed]
+        sync(dev)
+        seconds = time.monotonic() - t0
+        last, prof = _profile(lambda: [svc.submit(t, ts) for t, ts in profiled], dev)
+        return pairs + last, seconds, prof
+
+    (pairs, seconds, prof), launches = _count_lm_launches(run)
+    peak_gib = _peak_gib(dev)
+    n_micro = len(stream) * -(-SERVE["batch"] // SERVE_SVC["block"])
+    _expect_lm_launches("lm serve", launches, n_micro, flash=0)
+
+    # the oracle: the same service on the dense join, fed the same vectors
+    replay = iter(recorded)
+    oracle = SSSJService(**SERVE_SVC, embed_fn=lambda toks: next(replay), device=dev)
+    oracle.engine.close()
+    oracle.engine = StreamEngine(dataclasses.replace(oracle.engine.cfg, join_impl="dense"),
+                                 device=dev)
+    want = [oracle.submit(t, ts) for t, ts in stream]
+    flat, flat_want = ([p for req in x for p in req] for x in (pairs, want))
+    got_run, want_run = _pairs_run(flat), _pairs_run(flat_want)
+    band, score_err = _check_same_emission(got_run, want_run, "lm serve vs dense",
+                                           theta=SERVE_SVC["theta"])
+    got_keys = set(zip(*(x.tolist() for x in got_run["pairs"][:2])))
+    want_pairs = [(a, b) for a, b in zip(*(x.tolist() for x in want_run["pairs"][:2]))
+                  if (a, b) not in band] + sorted(k for k in band if k in got_keys)
+    groups, want_groups = svc.duplicate_groups(), _groups(want_pairs)
+    if groups != want_groups:
+        raise AssertionError("lm serve: duplicate_groups differ from the oracle's")
+    trends = svc.trending(3)
+    if trends != [g for g in want_groups if len(g) >= 3]:
+        raise AssertionError("lm serve: trends differ from the oracle's")
+    n_docs = sum(len(t) for t, _ in stream)
+    st = svc.engine.stats()
+    if (svc.stats.n_items != n_docs or n_docs <= SERVE_SVC["capacity"] or not flat
+            or st["pairs_dropped"]):
+        raise AssertionError(f"lm serve: the window did not wrap, nothing emitted or "
+                             f"pairs dropped: {svc.stats}")
+    embs = np.concatenate(recorded)
+    norms = np.linalg.norm(embs, axis=1)
+    if not (np.isfinite(embs).all() and np.abs(norms - 1.0).max() <= EMBED_TOL):
+        raise AssertionError(f"lm serve: embeddings not finite unit vectors "
+                             f"(norms {norms.min()}..{norms.max()})")
+
+    # the same parameters on the CPU: IEEE f32 there, so TF32 on the card shows
+    params_cpu = params_from_numpy(params_to_numpy(params), "cpu")
+    cpu = LMEmbedder(cfg, params_cpu, device="cpu")(stream[0][0][:SERVE_CPU_DOCS])
+    del params_cpu
+    cpu_err = float(np.abs(cpu - recorded[0][:SERVE_CPU_DOCS]).max())
+    if not cpu_err <= EMBED_TOL:
+        raise AssertionError(f"lm serve: card and CPU embeddings differ by {cpu_err}")
+
+    toks = torch.from_numpy(stream[0][0]).to(dev)
+    forward = lambda: pooled_unit_embed(params, cfg, toks)   # noqa: E731
+    fwd_ms = cuda_ms(forward, 3, warmup=1)
+    fwd_device_ms = device_ms(forward, 3, warmup=1)
+    tokens_per_doc = SERVE["seq"]
+    n_timed = sum(len(t) for t, _ in timed)
+    rec = {"phase": "lm_serve", "nvidia_smi": smi, **rec0, "config": SERVE_SVC,
+           "stream": SERVE, "documents": n_docs, "planted": planted,
+           "timed_documents": n_timed, "seconds": seconds,
+           "documents_per_s": n_timed / seconds,
+           "tokens_per_s": n_timed * tokens_per_doc / seconds,
+           "forward_ms": fwd_ms, "forward_device_ms": fwd_device_ms,
+           "forward_documents": len(stream[0][0]),
+           "device_busy_share": prof["device_busy_share"],
+           "profiled_requests": len(profiled), "launches": launches,
+           "pairs": len(flat), "dense_pairs": len(flat_want), "band_pairs": len(band),
+           "max_score_err": score_err, "groups": len(groups),
+           "largest_group": max(map(len, groups)) if groups else 0,
+           "trending_3": len(trends), "cpu_embed_max_abs_err": cpu_err,
+           "norm_err": float(np.abs(norms - 1.0).max()), "peak_gib": peak_gib,
+           "stats": st, "service_stats": dataclasses.asdict(svc.stats),
+           "phase_s": time.monotonic() - t_phase, "profile": prof}
+    for s in (svc, oracle):
+        s.engine.close()
+    emit(rec)
+    return launches
+
+
+def phase_lm_long(dev, smi, cfg, params) -> tuple:
+    """4l: 8 documents of 2,048 tokens through ``pooled_unit_embed``, so
+    that every one of the 28 layers' attention runs ``flash_attn.cu``
+    (positions ``arange(S)``, S above 1,024): one flash launch a layer,
+    finite unit embeddings; on layer 0's real q, k and v the flash route
+    against the port's ``chunked_causal_attention`` on the card within
+    ``FLASH_F32_TOL``; flash timed at this shape (B 8, H 16, Hkv 8, S
+    2,048, Dh 128) beside its plain version and SDPA, and the whole
+    forward on the device.  Returns ``(launches, flash record)``."""
+    import torch
+    from repro_torch._device import ieee_f32
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.models.attention import _project_qkv, chunked_causal_attention
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.lm import _layer
+    from repro_torch.serving import pooled_unit_embed
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (LONG_DOCS, LONG_SEQ))
+                            .astype(np.int32)).to(dev)
+    _reset_peak(dev)
+
+    def run():
+        sync(dev)
+        t0 = time.monotonic()
+        out = pooled_unit_embed(params, cfg, toks)
+        sync(dev)
+        return out, time.monotonic() - t0
+
+    (out, seconds), launches = _count_lm_launches(run)
+    peak_gib = _peak_gib(dev)
+    _expect_lm_launches("lm long documents", launches, 0, flash=cfg.n_layers)
+    norms = torch.linalg.vector_norm(out, dim=1)
+    if not (bool(torch.isfinite(out).all())
+            and float((norms - 1.0).abs().max()) <= EMBED_TOL):
+        raise AssertionError("lm long documents: embeddings not finite unit vectors")
+
+    # layer 0's q, k, v: the flash route against the chunked online softmax
+    p0 = _layer(params["groups"][0]["stacked"], 0)
+    hd = cfg.resolved_head_dim
+    with ieee_f32(dev):
+        x = torch.nn.functional.embedding(toks.long(), params["embed"])
+        pos = torch.arange(LONG_SEQ, dtype=torch.int32, device=dev)[None].expand(
+            LONG_DOCS, LONG_SEQ)
+        q, k, v = _project_qkv(p0["attn"], cfg, rms_norm(p0["norm1"], x, cfg.norm_eps), pos)
+        qf, kf, vf = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kw = dict(sm_scale=hd ** -0.5, causal=True)
+        flash_out = flash_attention(qf, kf, vf, device=dev, **kw).transpose(1, 2)
+        chunked = chunked_causal_attention(q, k, v, pos, pos[0], hd ** -0.5)
+    err = float((flash_out - chunked).abs().max())
+    if not err <= FLASH_F32_TOL:
+        raise AssertionError(f"lm long documents: flash vs chunked attention {err}")
+
+    flash_call = lambda: flash_attention(qf, kf, vf, device=dev, **kw)   # noqa: E731
+    plain_call = lambda: flash_attention_plain(qf, kf, vf, block_q=128,  # noqa: E731
+                                               block_k=128, **kw)
+    lib_call = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qf, kf, vf, is_causal=True, scale=hd ** -0.5, enable_gqa=True)
+    parts: dict = {}
+    B, H, S, Dh = qf.shape
+    flops = 2 * B * H * S * S * Dh      # causal: half of q·kᵀ and p·v
+    nbytes = (2 * qf.numel() + kf.numel() + vf.numel()) * 4
+    flash_rec = {"shape": {"B": B, "H": H, "Hkv": kf.shape[1], "S": S, "Dh": Dh},
+                 "max_abs_err_vs_chunked": err,
+                 "ms": cuda_ms(flash_call, 10),
+                 "device_ms": device_ms(flash_call, 10, "::flash_", parts=parts),
+                 "plain_ms": cuda_ms(plain_call, 3, 1),
+                 "plain_device_ms": device_ms(plain_call, 3, warmup=1),
+                 "library_ms": cuda_ms(lib_call, 10),
+                 "library_device_ms": device_ms(lib_call, 10),
+                 "device_ms_by_kernel": _by_kernel(parts)}
+    flash_rec["bound_ms"], flash_rec["bound_by"] = bound_ms(nbytes, flops)
+    flash_rec["bound_3xtf32_ms"] = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)[0]
+    forward = lambda: pooled_unit_embed(params, cfg, toks)   # noqa: E731
+    rec = {"phase": "lm_long", "nvidia_smi": smi, "documents": LONG_DOCS,
+           "tokens": LONG_SEQ, "launches": launches, "seconds": seconds,
+           "tokens_per_s": LONG_DOCS * LONG_SEQ / seconds,
+           "forward_ms": cuda_ms(forward, 2, warmup=1),
+           "forward_device_ms": device_ms(forward, 2, warmup=1),
+           "norm_err": float((norms - 1.0).abs().max()), "peak_gib": peak_gib,
+           "flash": flash_rec, "phase_s": time.monotonic() - t_phase}
+    emit(rec)
+    return launches, flash_rec
+
+
+def phase_lm_fused(dev, smi, cfg, params) -> dict:
+    """4m: ``MultiTenantSSSJService`` over 8 tenants with ``fused=
+    FusedEmbedder(qwen3-0.6b, params, seq_len=64)``: 2,048 documents of
+    ``token_requests`` (each request's documents dealt to tenants by a
+    seeded draw, one submit a tenant a request, a flush a request), its
+    launches read around its own run; beside it the same service fed
+    ``LMEmbedder`` vectors embedded on the host a submit at a time.  Each
+    tenant's flushed pairs equal outside the ε-band of its θ (scores
+    within ``FLOAT_TOL``), its groups those of the other run's pairs, its
+    counters equal.  The host embeds each request's 128 documents in one
+    call; the embeddings' difference between the two batchings
+    (micro-batches of 64 in admission order against a request's rows) is
+    measured and reported."""
+    import torch
+    from repro_torch.launch.serve import token_requests
+    from repro_torch.runtime import FusedEmbedder, TenantTable
+    from repro_torch.serving import LMEmbedder, MultiTenantSSSJService, pooled_unit_embed
+
+    t_phase = time.monotonic()
+    stream, planted = token_requests(cfg.vocab_size, **FUSED)
+    deal = np.random.default_rng(SEED + 4).integers(0, FUSED_TENANTS,
+                                                    (len(stream), FUSED["batch"]))
+    emb = LMEmbedder(cfg, params, device=dev)
+
+    def service(fused):
+        return MultiTenantSSSJService(TenantTable(FUSED_THETAS, FUSED_LAMS),
+                                      fused=fused, device=dev, **FUSED_SVC)
+
+    def drive(svc, payload):
+        """One submit a tenant a request (``payload`` maps a request's
+        tokens to what the service takes), a flush a request."""
+        out: dict = {}
+        sync(dev)
+        t0 = time.monotonic()
+        for (toks, ts), tenants in zip(stream, deal):
+            data = payload(toks)
+            for k in range(FUSED_TENANTS):
+                if (tenants == k).any():
+                    svc.submit(k, data[tenants == k], ts[tenants == k])
+            for k, p in svc.flush().items():
+                out.setdefault(k, []).extend(p)
+        for k, p in svc.flush(final=True).items():
+            out.setdefault(k, []).extend(p)
+        sync(dev)
+        return out, time.monotonic() - t0
+
+    svc_f = service(FusedEmbedder(cfg, params, FUSED["seq"]))
+    (pairs_f, sec_f), launches = _count_lm_launches(lambda: drive(svc_f, lambda t: t))
+    n_micro = svc_f.runtime.spans_dispatched * FUSED_SVC["span"]
+    _expect_lm_launches("lm fused", launches, n_micro, flash=0)
+    host_vecs = []
+
+    def host_embed(toks):
+        host_vecs.append(emb(toks))
+        return host_vecs[-1]
+
+    svc_h = service(None)
+    pairs_h, sec_h = drive(svc_h, host_embed)
+    host_vecs = np.concatenate(host_vecs)
+    want = {k: {(a, b): s for a, b, s in p} for k, p in pairs_h.items()}
+    band_docs, n_band, err, n_groups = _check_service_groups(
+        "lm fused vs host", svc_f, pairs_f, want, FUSED_THETAS)
+    counters = ("submitted", "queued", "window_overflow")
+    for k in range(FUSED_TENANTS):
+        a, b = svc_f.tenant_stats(k), svc_h.tenant_stats(k)
+        if {c: a[c] for c in counters} != {c: b[c] for c in counters} or (
+                k not in band_docs and a["pairs_drained"] != b["pairs_drained"]):
+            raise AssertionError(f"lm fused tenant {k}: counters {a} vs host {b}")
+    n_pairs = sum(map(len, pairs_f.values()))
+    if not n_pairs or svc_f.stats()["pairs_dropped"]:
+        raise AssertionError("lm fused: nothing emitted or pairs dropped")
+
+    # the embeddings of both batchings, in admission order (tenant by
+    # tenant within a request)
+    order = np.concatenate([np.argsort(tenants, kind="stable") + r * len(tenants)
+                            for r, tenants in enumerate(deal)])
+    toks_all = np.concatenate([toks for toks, _ in stream])[order]
+    mb = FUSED_SVC["micro_batch"]
+    fused_like = torch.cat([
+        pooled_unit_embed(params, cfg, torch.from_numpy(toks_all[i:i + mb]).to(dev))
+        for i in range(0, len(order), mb)]).cpu().numpy()
+    embed_diff = float(np.abs(fused_like - host_vecs[order]).max())
+    n_docs = len(order)
+    rec = {"phase": "lm_fused", "nvidia_smi": smi, "tenants": FUSED_TENANTS,
+           "thetas": FUSED_THETAS, "lams": FUSED_LAMS, "config": FUSED_SVC,
+           "stream": FUSED, "documents": n_docs, "planted": planted,
+           "launches": launches, "micro_batches": n_micro,
+           "fused_seconds": sec_f, "fused_documents_per_s": n_docs / sec_f,
+           "host_seconds": sec_h, "host_documents_per_s": n_docs / sec_h,
+           "pairs": n_pairs, "band_pairs": n_band, "band_documents": band_docs,
+           "max_score_err": err, "groups": n_groups,
+           "embed_max_abs_diff_fused_vs_host": embed_diff,
+           "stats": svc_f.stats(), "phase_s": time.monotonic() - t_phase}
+    for s in (svc_f, svc_h):
+        s.runtime.close()
+    emit(rec)
+    return launches
+
+
+# --------------------------------------------------------------------- #
 # phase 5: flash attention
 # --------------------------------------------------------------------- #
 # (label, B, H, Hkv, S, Dh, causal, dtype): the head geometry of qwen3-0.6b
@@ -2367,6 +2744,7 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
+    t_start = time.monotonic()
     sys.path.insert(0, str(ROOT / "src"))
     # plain versions and the dense oracle run in IEEE f32: TF32 moves
     # scores by ~1e-3, which moves pairs across θ
@@ -2401,6 +2779,14 @@ def main() -> int:
         by_path["ring_join"] = phase_ring_join(dev, smi, requests)
         by_path["sharded_service"] = phase_sharded_service(dev, smi, stream)
         del stream, kern_run
+        t_lm = time.monotonic()
+        cfg, params, lm_rec = lm_params(dev)
+        by_path["lm_serve"] = phase_lm_serve(dev, smi, cfg, params, lm_rec)
+        by_path["lm_long"], lm_flash = phase_lm_long(dev, smi, cfg, params)
+        by_path["lm_fused"] = phase_lm_fused(dev, smi, cfg, params)
+        lm_s = time.monotonic() - t_lm
+        del params
+        gc.collect()
         torch.cuda.empty_cache()     # the child's phases need the card's memory
         kern, flash = run_kernel_phases(smi)
     except Exception as exc:  # report the failing phase, then fail
@@ -2426,12 +2812,21 @@ def main() -> int:
         if row["name"] in device["ptxas_joins"]:
             row["ptxas_full_128"] = device["ptxas_joins"][row["name"]]
     rows[1]["ptxas"] = device["ptxas_gate"]
-    # flash attention: the f32 qwen3-0.6b case's numbers, the bf16 ones beside
+    # flash attention: its launches on the LM's long-document path (one a
+    # layer), the f32 qwen3-0.6b case's numbers from phase 5, the bf16 ones
+    # beside, and its times at the LM's shape
     rows.append({"name": "flash_attn", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
                  "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
-                 **flash, "ptxas_bf16": device["ptxas_flash_bf16"],
+                 **flash, "launches": by_path["lm_long"]["flash_attn"],
+                 "launches_by_path": {
+                     **{path: counts.get("flash_attn", 0) for path, counts in by_path.items()},
+                     "flash_phase": flash["launches"]},
+                 "lm_long_documents": lm_flash,
+                 "ptxas_bf16": device["ptxas_flash_bf16"],
                  "ptxas_f32_3xtf32": device["ptxas_flash_tf32"]})
+    emit({"phase": "total", "seconds": time.monotonic() - t_start,
+          "lm_phases_seconds": lm_s})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

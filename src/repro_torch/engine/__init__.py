@@ -8,6 +8,7 @@ from .engine import (  # noqa: F401
     host_lanes,
     make_micro_step,
     pad_request,
+    require_whole_tiles,
 )
 from .sharded import (  # noqa: F401
     ShardedStreamEngine,

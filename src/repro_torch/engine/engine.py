@@ -62,6 +62,7 @@ __all__ = [
     "make_batch_step",
     "make_micro_step",
     "pad_request",
+    "require_whole_tiles",
     "stack_outputs",
 ]
 
@@ -268,11 +269,33 @@ def pad_request(vecs, ts, next_uid: int, micro_batch: int):
     )
 
 
+def require_whole_tiles(cfg: EngineConfig, device: DeviceLike) -> None:
+    """Refuse, on a CUDA device, a kernel-route step whose joins are
+    smaller than one tile.  The join wrappers hand such a join (``Q <
+    block_q``, ``W < block_w`` or ``d < chunk_d``) to the dense reference,
+    which on the card would run in plain torch instead of the kernel.  A
+    step joins the micro-batch against the ring and against itself; a CPU
+    step runs any shape, as the reference does.  The device (``None`` =
+    CUDA) is only named, never touched."""
+    on_cuda = device is None or torch.device(device).type == "cuda"
+    kernel_route = not cfg.use_ref and (cfg.emit_dense or cfg.join_impl is None)
+    if not (on_cuda and kernel_route):
+        return
+    mb, cap = cfg.micro_batch, cfg.capacity
+    if mb < cfg.block_q or min(mb, cap) < cfg.block_w or cfg.d < cfg.chunk_d:
+        raise ValueError(
+            f"micro_batch {mb} x window capacity {cap} at d {cfg.d} holds a "
+            f"join smaller than one {cfg.block_q} x {cfg.block_w} x "
+            f"{cfg.chunk_d} tile, which would not run the join kernel"
+        )
+
+
 def make_micro_step(
     cfg: EngineConfig,
     ingest: Callable,
     self_mask: Optional[Callable] = None,
     tenant_lookup: Optional[Callable] = None,
+    embed_fn: Optional[Callable] = None,
 ):
     """The per-micro-batch step: ``(state, telem, q, tq, uq, n_valid[, sq])
     → (PairBuffer, row_mask (mb,) bool)``; ``state`` and ``telem`` are
@@ -287,16 +310,18 @@ def make_micro_step(
     the window join gets ``sq`` against the ring's ``sids``, the self join
     ``sq`` against itself, and ``tenant_lookup(sq) → (theta_q, lam_q) |
     None`` gives the per-row thresholds (``None`` for a uniform table).
+    ``embed_fn`` maps the micro-batch's payload (token ids) to unit
+    vectors before the joins: the fused embed→join.
     """
     kw = cfg.join_kwargs
     ckw = cfg.candidate_kwargs
     multi = tenant_lookup is not None
     if cfg.emit_dense and self_mask is not None:
         raise ValueError("the emit_dense oracle path is single-device only")
-    if cfg.emit_dense and multi:
+    if cfg.emit_dense and (multi or embed_fn is not None):
         raise ValueError(
-            "the emit_dense oracle path is single-tenant; multi-tenant runs "
-            "use the hierarchical path"
+            "the emit_dense oracle path is single-tenant and takes vectors; "
+            "multi-tenant and fused-embed runs use the hierarchical path"
         )
 
     def joins(state: WindowState, q, tq, uq, sq):
@@ -336,6 +361,8 @@ def make_micro_step(
     def micro_step(state: WindowState, telem: EngineTelemetry,
                    q, tq, uq, n_valid: int, sq=None):
         dev = q.device
+        if embed_fn is not None:
+            q = embed_fn(q)
         buf, row_mask, it_win, gs = joins(state, q, tq, uq, sq)
         # newest valid arrival: the reference point for live-slot overflow
         lanes = torch.arange(q.shape[0], device=dev)
@@ -373,7 +400,9 @@ def make_batch_step(cfg: EngineConfig, device: DeviceLike = None):
     d)``, ``tqs/uqs (n_micro, mb)`` device tensors and ``nvs`` host
     counts; ``bufs`` stacks each :class:`PairBuffer` leaf over
     micro-batches and ``masks`` is ``(n_micro, mb)``.  ``device`` holds
-    the quota table."""
+    the quota table; a kernel-route step on CUDA needs whole tiles
+    (:func:`require_whole_tiles`)."""
+    require_whole_tiles(cfg, device)
     tau = cfg.tau
     quo = cfg.quotas_device(device)
 

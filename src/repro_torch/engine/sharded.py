@@ -58,6 +58,7 @@ from .engine import (
     host_lanes,
     init_telemetry,
     make_micro_step,
+    require_whole_tiles,
     stack_outputs,
 )
 from .window import WindowState, init_window, push_with_overflow, window_to_numpy
@@ -215,17 +216,8 @@ def make_sharded_batch_step(cfg: EngineConfig, mesh: Mesh, axis: str, table=None
     p = len(devices)
     if cfg.micro_batch % p != 0:
         raise ValueError(f"micro_batch {cfg.micro_batch} not divisible by {p} shards")
-    mb = cfg.micro_batch
-    if devices[0].type == "cuda" and cfg.candidate_kwargs["impl"] is None and (
-        mb < cfg.block_q or min(mb, cfg.capacity) < cfg.block_w or cfg.d < cfg.chunk_d
-    ):
-        # the candidate wrapper would hand a join smaller than one tile to
-        # the dense reference: on the card each shard launches or raises
-        raise ValueError(
-            f"micro_batch {mb} x shard capacity {cfg.capacity} at d {cfg.d} "
-            f"holds a join smaller than one {cfg.block_q} x {cfg.block_w} x "
-            f"{cfg.chunk_d} tile, which would not run the candidate kernel"
-        )
+    # each shard joins the whole micro-batch against its shard's ring
+    require_whole_tiles(cfg, devices[0])
     multi = table is not None
     tau = table.tau_max if multi else cfg.tau
     bl = cfg.micro_batch // p       # arrivals per shard per micro-batch

@@ -6,9 +6,8 @@
   * :mod:`~repro_torch.runtime.runtime` — :class:`MultiTenantRuntime`:
     the stream-tagged engine facade (fixed-span dispatch, per-tenant
     drain, admission→emission latency) on one device
-    (:class:`SingleDeviceFacade`) or a device mesh (:class:`ShardedFacade`).
-
-The reference's ``FusedEmbedder`` comes with the LM stack.
+    (:class:`SingleDeviceFacade`) or a device mesh (:class:`ShardedFacade`),
+    and the fused embed→join (:class:`FusedEmbedder`).
 """
 
 from .router import (  # noqa: F401
@@ -18,6 +17,7 @@ from .router import (  # noqa: F401
 )
 from .runtime import (  # noqa: F401
     EngineFacade,
+    FusedEmbedder,
     MultiTenantRuntime,
     ShardedFacade,
     SingleDeviceFacade,

@@ -23,8 +23,10 @@ The reference's ``lax.scan`` over a span is a host loop of micro-steps on
 one CUDA stream (:func:`make_tenant_batch_step`).  The :class:`EngineFacade`
 seam keeps the runtime engine-agnostic: :class:`SingleDeviceFacade` runs
 one ring on one device, :class:`ShardedFacade` spreads the ring over a
-device mesh (:mod:`repro_torch.engine.sharded`), with the same emissions
-(the reference's ``FusedEmbedder`` waits for the LM stack).
+device mesh (:mod:`repro_torch.engine.sharded`), with the same emissions.
+With a :class:`FusedEmbedder` (single device) submissions are token
+batches, and the LM forward, pooling and normalization run inside the
+step, micro-batch by micro-batch: embeddings never visit the host.
 
 Determinism: uids are assigned at admission (global arrival order), the
 router preserves that order exactly, and the engine is invariant to
@@ -36,17 +38,19 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, Dict, Optional, Tuple
+from typing import Any, Deque, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, canonical_device, resolve_device
+from ..configs.base import ModelConfig
 from ..engine.engine import (
     EngineConfig,
     StreamEngineBase,
     init_telemetry,
     make_micro_step,
+    require_whole_tiles,
     stack_outputs,
 )
 from ..engine.sharded import (
@@ -65,6 +69,7 @@ from .tenants import TenantTable
 
 __all__ = [
     "EngineFacade",
+    "FusedEmbedder",
     "MultiTenantRuntime",
     "ShardedFacade",
     "SingleDeviceFacade",
@@ -73,6 +78,23 @@ __all__ = [
 ]
 
 _EMPTY_T = 3.0e30   # timestamp of inert pad rows in empty micro-batches
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedEmbedder:
+    """Embed-inside-the-join configuration for token submissions.
+
+    ``model_cfg.d_model`` must equal ``EngineConfig.d``; ``seq_len`` fixes
+    the token payload's width; ``params`` (the port's, e.g. from
+    :func:`repro_torch.models.init_lm`) lie on the runtime's device.  The
+    embedding is :func:`repro_torch.serving.embedder.pooled_unit_embed`,
+    the function the host-side :class:`~repro_torch.serving.embedder
+    .LMEmbedder` calls on its request batches.
+    """
+
+    model_cfg: ModelConfig
+    params: Any
+    seq_len: int
 
 
 class EngineFacade:
@@ -84,7 +106,8 @@ class EngineFacade:
     :meth:`init_state` / :meth:`init_telemetry` (the window with its
     ``sids`` lane and per-tenant policy lanes, and the telemetry),
     :meth:`make_step` (the stream-tagged batch step ``(state, telem, qs,
-    tqs, uqs, sqs, nvs) → (bufs, masks)``), :meth:`global_capacity` (the
+    tqs, uqs, sqs, nvs) → (bufs, masks)``, embedding token payloads first
+    with a :class:`FusedEmbedder`), :meth:`global_capacity` (the
     dense-equivalent traffic accounting), :meth:`metrics_extra`
     (engine-specific counters, published flat into the registry) and
     :meth:`home_device` (where requests are uploaded and results drained).
@@ -101,7 +124,7 @@ class EngineFacade:
         raise NotImplementedError
 
     def make_step(self, cfg: EngineConfig, table: TenantTable,
-                  device: torch.device):
+                  device: torch.device, fused: Optional[FusedEmbedder] = None):
         raise NotImplementedError
 
     def global_capacity(self, cfg: EngineConfig) -> int:
@@ -127,8 +150,8 @@ class SingleDeviceFacade(EngineFacade):
     def init_telemetry(self, cfg, device):
         return init_telemetry(device)
 
-    def make_step(self, cfg, table, device):
-        return make_tenant_batch_step(cfg, table, device)
+    def make_step(self, cfg, table, device, fused=None):
+        return make_tenant_batch_step(cfg, table, fused, device)
 
     def global_capacity(self, cfg: EngineConfig) -> int:
         return cfg.capacity
@@ -142,7 +165,7 @@ class ShardedFacade(EngineFacade):
     .ShardedStreamEngine`) and ``cfg.max_pairs`` the global budget per
     micro-batch; ``cfg.micro_batch`` must divide by the shard count (the
     round-robin deal).  The runtime uploads to and drains from the first
-    shard's device.
+    shard's device.  The fused embed→join is single-device only.
     """
 
     def __init__(self, mesh: Mesh) -> None:
@@ -171,7 +194,12 @@ class ShardedFacade(EngineFacade):
     def init_telemetry(self, cfg, device):
         return init_sharded_telemetry(self.mesh, self.axis)
 
-    def make_step(self, cfg, table, device):
+    def make_step(self, cfg, table, device, fused=None):
+        if fused is not None:
+            raise NotImplementedError(
+                "fused embed→join is single-device only; submit vectors "
+                "(or embed on the host) when running on ShardedFacade"
+            )
         return make_sharded_batch_step(cfg, self.mesh, self.axis, table=table)
 
     def global_capacity(self, cfg: EngineConfig) -> int:
@@ -182,12 +210,16 @@ class ShardedFacade(EngineFacade):
 
 
 def make_tenant_batch_step(cfg: EngineConfig, table: TenantTable,
+                           fused: Optional[FusedEmbedder] = None,
                            device: DeviceLike = None):
     """The multi-tenant request step (single device): ``(state, telem, qs,
     tqs, uqs, sqs, nvs) → (bufs, masks)``, :func:`repro_torch.engine
-    .make_batch_step` plus the ``sqs (n_micro, mb)`` stream-id lane.  The
-    ring's overflow horizon is the table's widest; ``device`` holds the
-    quota table."""
+    .make_batch_step` plus the ``sqs (n_micro, mb)`` stream-id lane.  With
+    ``fused``, ``qs`` is a token stack ``(n_micro, mb, seq_len)`` and each
+    micro-batch is embedded before its joins.  The ring's overflow horizon
+    is the table's widest; ``device`` holds the quota table, and a
+    kernel-route step on CUDA needs whole tiles."""
+    require_whole_tiles(cfg, device)
     tau = table.tau_max
     quo = cfg.quotas_device(device)
 
@@ -198,7 +230,17 @@ def make_tenant_batch_step(cfg: EngineConfig, table: TenantTable,
             summary_block_w=cfg.block_w, summary_chunk_d=cfg.chunk_d,
         )
 
-    micro = make_micro_step(cfg, ingest, tenant_lookup=table.lookup)
+    embed_fn = None
+    if fused is not None:
+        # imported here: serving.service imports this package for the
+        # multi-tenant service, so a module-level import would cycle
+        from ..serving.embedder import pooled_unit_embed
+
+        def embed_fn(toks):
+            return pooled_unit_embed(fused.params, fused.model_cfg, toks)
+
+    micro = make_micro_step(cfg, ingest, tenant_lookup=table.lookup,
+                            embed_fn=embed_fn)
 
     def batch_step(state, telem, qs, tqs, uqs, sqs, nvs):
         return stack_outputs([
@@ -220,7 +262,9 @@ class MultiTenantRuntime(StreamEngineBase):
     inherited :meth:`drain_arrays` / :meth:`stats` work on the global
     stream.  The engine runs on ``device`` (``None`` = CUDA), or with
     ``engine=ShardedFacade(mesh)`` on the mesh's devices, with the same
-    emissions.
+    emissions.  With ``fused`` (a :class:`FusedEmbedder`, single device)
+    ``submit`` takes ``(b, seq_len)`` int tokens, embedded on the device
+    inside each step.
 
     Timestamps should be globally non-decreasing in admission order:
     correctness never depends on it, but window eviction and the gate are
@@ -234,6 +278,7 @@ class MultiTenantRuntime(StreamEngineBase):
         *,
         span: int = 4,
         max_queue_per_tenant: int = 65536,
+        fused: Optional[FusedEmbedder] = None,
         engine: Optional[EngineFacade] = None,
         device: DeviceLike = None,
     ) -> None:
@@ -244,6 +289,11 @@ class MultiTenantRuntime(StreamEngineBase):
             # are authoritative, so fold them into the config
             th, lm = table.spec(0)
             cfg = dataclasses.replace(cfg, theta=th, lam=lm)
+        if fused is not None and fused.model_cfg.d_model != cfg.d:
+            raise ValueError(
+                f"fused embedder d_model ({fused.model_cfg.d_model}) must "
+                f"equal EngineConfig.d ({cfg.d})"
+            )
         if cfg.quotas is not None and len(cfg.quotas) != table.n_tenants:
             raise ValueError(
                 f"quota table has {len(cfg.quotas)} entries but the tenant "
@@ -255,13 +305,14 @@ class MultiTenantRuntime(StreamEngineBase):
         super().__init__(cfg, engine.home_device(device))
         self.table = table
         self.span = span
+        self.fused = fused
         self.engine = engine
         self.router = RequestRouter(
             table.n_tenants, max_queue_per_tenant=max_queue_per_tenant
         )
         self.state = self.engine.init_state(cfg, table, self.device)
         self.telem = self.engine.init_telemetry(cfg, self.device)
-        self._step = self.engine.make_step(cfg, table, self.device)
+        self._step = self.engine.make_step(cfg, table, self.device, fused)
         # the engine's registry is the one stats surface: router, tenant,
         # span and latency metrics join it
         self.tracer = SpanTracer(self.registry)
@@ -295,19 +346,27 @@ class MultiTenantRuntime(StreamEngineBase):
         )
 
     def submit(self, tenant: int, data: np.ndarray, ts: np.ndarray) -> np.ndarray:
-        """Admit one tenant's ``(b, d)`` vectors (callers normalize);
-        returns their global uids.  Nothing reaches the device until
-        :meth:`flush`.  Raises :class:`~repro_torch.runtime.router
-        .TenantBackpressure` (admitting nothing) when the tenant's queue
-        cap would be exceeded."""
+        """Admit one tenant's ``(b, d)`` vectors (callers normalize), or
+        ``(b, seq_len)`` int tokens in fused mode; returns their global
+        uids.  Nothing reaches the device until :meth:`flush`.  Raises
+        :class:`~repro_torch.runtime.router.TenantBackpressure` (admitting
+        nothing) when the tenant's queue cap would be exceeded."""
         tenant = self.table.validate_id(tenant)
         ts = np.asarray(ts, np.float64).reshape(-1)
-        data = np.asarray(data, np.float32)
-        if data.ndim != 2 or data.shape[1] != self.cfg.d:
-            raise ValueError(
-                f"submissions must be (b, {self.cfg.d}) vectors, "
-                f"got {data.shape}"
-            )
+        if self.fused is not None:
+            data = np.asarray(data, np.int32)
+            if data.ndim != 2 or data.shape[1] != self.fused.seq_len:
+                raise ValueError(
+                    f"fused submissions must be (b, {self.fused.seq_len}) "
+                    f"tokens, got {data.shape}"
+                )
+        else:
+            data = np.asarray(data, np.float32)
+            if data.ndim != 2 or data.shape[1] != self.cfg.d:
+                raise ValueError(
+                    f"submissions must be (b, {self.cfg.d}) vectors, "
+                    f"got {data.shape}"
+                )
         b = data.shape[0]
         if b != ts.shape[0]:
             raise ValueError(f"{b} rows but {ts.shape[0]} timestamps")
@@ -338,7 +397,12 @@ class MultiTenantRuntime(StreamEngineBase):
         assert n <= rows
         n_real = -(-n // mb)                     # micro-batches with any data
         with self.tracer.span("coalesce"):
-            pl = np.zeros((rows, cfg.d), np.float32)
+            # pad rows: zero vectors, or all-pad (token 0) documents, which
+            # embed to the zero vector
+            if self.fused is not None:
+                pl = np.zeros((rows, self.fused.seq_len), np.int32)
+            else:
+                pl = np.zeros((rows, cfg.d), np.float32)
             pl[:n] = payload
             tq = np.full(rows, _EMPTY_T, np.float32)  # inert: all strips dead
             tq[:n] = ts

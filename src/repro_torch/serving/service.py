@@ -12,9 +12,10 @@ horizon) — application #1.
 :class:`MultiTenantSSSJService` is the same loop over the multi-tenant
 runtime: many logical streams coalesce onto one engine, each with its
 own ``(θ, λ)``, and the union-find keys are namespaced ``(tenant, uid)``
-tuples; with ``mesh=`` it runs on the sharded engine.  The reference's
-fused-embedding variant (``fused=``) and its ``LMEmbedder`` are not
-ported yet.
+tuples; with ``mesh=`` it runs on the sharded engine, with ``fused=`` it
+takes token batches and embeds them inside the runtime's step.  The
+host-side LM embedder is :class:`repro_torch.serving.embedder.LMEmbedder`,
+an ``embed_fn`` for :class:`SSSJService`.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 from .._device import DeviceLike
 from ..engine.engine import EngineConfig, StreamEngine
 from ..engine.window import quota_partition
-from ..runtime import MultiTenantRuntime, ShardedFacade, TenantTable
+from ..runtime import FusedEmbedder, MultiTenantRuntime, ShardedFacade, TenantTable
 
 __all__ = [
     "MultiTenantSSSJService",
@@ -207,8 +208,10 @@ class MultiTenantSSSJService:
     on the sharded engine: ``capacity`` stays the total window, split
     evenly over the mesh's window shards, and the emissions, so the
     groups, are the single-device run's.  Every quota must then divide
-    by the shard count, as sub-rings are local to each shard.  ``fused``
-    (embedding inside the join) is not ported yet and raises.
+    by the shard count, as sub-rings are local to each shard.  With
+    ``fused`` (a :class:`~repro_torch.runtime.FusedEmbedder`, single device
+    only) ``submit`` takes ``(b, seq_len)`` token batches, embedded on the
+    device inside the runtime's step.
     """
 
     def __init__(
@@ -221,17 +224,12 @@ class MultiTenantSSSJService:
         tile_k: Optional[int] = None,
         span: int = 4,
         max_queue_per_tenant: int = 65536,
-        fused=None,
+        fused: Optional[FusedEmbedder] = None,
         mesh=None,
         eviction: str = "oldest",
         quotas: Optional[Sequence[int]] = None,
         device: DeviceLike = None,
     ) -> None:
-        if fused is not None:
-            raise NotImplementedError(
-                "fused embed→join (fused=) comes with the LM stack (ROADMAP "
-                "queue 1, item 9); embed on the host and submit vectors"
-            )
         engine = None
         n = 1
         if mesh is not None:
@@ -292,9 +290,10 @@ class MultiTenantSSSJService:
         )
         self.runtime = MultiTenantRuntime(
             cfg, table, span=span, max_queue_per_tenant=max_queue_per_tenant,
-            engine=engine, device=device,
+            fused=fused, engine=engine, device=device,
         )
         self.table = table
+        self.fused = fused
         self.groups = _UnionFind()
         # global uid → per-tenant local uid (dense per-tenant numbering, the
         # namespace the caller reasons in)
@@ -305,17 +304,18 @@ class MultiTenantSSSJService:
     def submit(
         self,
         tenant: int,
-        batch: np.ndarray,           # (B, dim) vectors
+        batch: np.ndarray,           # (B, dim) vectors or (B, S) tokens
         timestamps: np.ndarray,      # (B,)
     ) -> np.ndarray:
         """Enqueue one tenant's documents; returns their *local* uids.
         Nothing reaches the device until :meth:`flush`: a tenant submitting
         3 documents at a time still rides full micro-batches once enough
         tenants queue up."""
-        vecs = np.asarray(batch, np.float32)
-        norms = np.linalg.norm(vecs, axis=1, keepdims=True)
-        uids = self.runtime.submit(tenant, vecs / np.maximum(norms, 1e-9),
-                                   np.asarray(timestamps))
+        if self.fused is None:
+            vecs = np.asarray(batch, np.float32)
+            norms = np.linalg.norm(vecs, axis=1, keepdims=True)
+            batch = vecs / np.maximum(norms, 1e-9)
+        uids = self.runtime.submit(tenant, batch, np.asarray(timestamps))
         base = self._next_local[tenant]
         local = np.arange(base, base + uids.size, dtype=np.int64)
         self._next_local[tenant] = base + uids.size

@@ -5,20 +5,30 @@ kernel in interpret mode, or the dense oracle) and the port's engine with
 ``device="cpu"`` (the kernels' plain versions).  Tolerances: drained uids,
 row masks, ``stats()`` and ``engine/prune/*`` exact; scores ``atol=1e-5``.
 Pair sets are held identical outside an ε-band of 1e-5 around θ; on
-these streams no pair lies in the band, which the tests check.
+these streams no pair lies in the band, which the tests check.  On a
+named CUDA device (never touched) the kernel route's step refuses joins
+smaller than one tile.
 """
 
+import dataclasses
 import json
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from repro.engine import EngineConfig as JConfig
 from repro.engine import StreamEngine as JEngine
 from repro_torch.data import dense_embedding_stream, topic_drift_stream
-from repro_torch.engine import EngineConfig, StreamEngine
-from repro_torch.engine.window import window_from_numpy, window_to_numpy
+from repro_torch.engine import (
+    EngineConfig,
+    StreamEngine,
+    init_telemetry,
+    make_batch_step,
+    make_micro_step,
+)
+from repro_torch.engine.window import init_window, window_from_numpy, window_to_numpy
 
 SCORE_ATOL = 1e-5
 BAND = 1e-5
@@ -280,3 +290,50 @@ def test_reference_rejects_the_same_invalid_configs():
                dict(use_ref=True, l2_gate=True)):
         with pytest.raises(ValueError):
             JConfig(**_cfg_kw(**kw))
+
+
+CUDA0 = torch.device("cuda", 0)   # named, never touched: no card is needed
+
+
+@pytest.mark.parametrize("kw", [
+    dict(capacity=32, block_w=64),          # window (and self join) under one tile
+    dict(micro_batch=16, block_q=32),       # queries under one tile
+    dict(micro_batch=16, block_w=32),       # the self join under one tile
+    dict(d=16, chunk_d=32),                 # d under one chunk
+    dict(micro_batch=16, block_q=32, emit_dense=True),   # the dense tile join
+], ids=["capacity", "block_q", "self", "chunk_d", "emit_dense"])
+def test_batch_step_refuses_sub_tile_joins_on_cuda(kw):
+    """``StreamEngine``'s step on a CUDA device refuses a join smaller than
+    one tile (the join wrappers would run it as the dense reference, in
+    plain torch on the card); the CPU step runs it, as the reference does,
+    and so do the card's oracles (``join_impl="dense"``, ``use_ref``)."""
+    cfg = EngineConfig(**_cfg_kw(**kw))
+    with pytest.raises(ValueError, match="smaller than one"):
+        make_batch_step(cfg, CUDA0)
+    make_batch_step(cfg, CPU)
+    if not cfg.emit_dense:
+        make_batch_step(dataclasses.replace(cfg, join_impl="dense"), CUDA0)
+    make_batch_step(dataclasses.replace(cfg, use_ref=True, l2_gate=None), CUDA0)
+    vecs, ts = dense_embedding_stream(40, cfg.d, seed=1)
+    eng = StreamEngine(cfg, device=CPU)
+    eng.push(vecs, ts)
+    eng.drain_arrays()
+
+
+def test_micro_step_takes_an_embed_fn():
+    """The fused embed→join hook maps the payload before the joins, and the
+    ``emit_dense`` oracle refuses it."""
+    cfg = EngineConfig(**_cfg_kw())
+    with pytest.raises(ValueError, match="takes vectors"):
+        make_micro_step(dataclasses.replace(cfg, emit_dense=True), lambda *a: None,
+                        embed_fn=lambda x: x)
+    seen = []
+    step = make_micro_step(cfg, lambda *a: None,
+                           embed_fn=lambda x: seen.append(x.shape) or x[:, :cfg.d])
+    vecs, ts = dense_embedding_stream(32, cfg.d, seed=2)
+    payload = torch.cat([torch.from_numpy(vecs), torch.zeros((32, 5))], 1)
+    state = init_window(cfg.capacity, cfg.d, summary_block_w=cfg.block_w,
+                        summary_chunk_d=cfg.chunk_d, device=CPU)
+    buf, mask = step(state, init_telemetry(CPU), payload, torch.from_numpy(ts).float(),
+                     torch.arange(32, dtype=torch.int32), 32)
+    assert seen == [(32, cfg.d + 5)] and mask.shape == (32,)

@@ -27,6 +27,7 @@ from repro.engine.window import quota_partition as j_quota_partition
 from repro.obs import MetricsRegistry as JRegistry
 from repro.runtime import RequestRouter as JRouter
 from repro_torch.core.blocked import BlockedJoinConfig, BlockedStreamJoiner
+from repro_torch.configs import ARCHS
 from repro_torch.core.similarity import time_horizon
 from repro_torch.data import DedupFilter
 from repro_torch.data import synth as tsynth
@@ -38,8 +39,9 @@ from repro_torch.kernels.sssj_join import gate as tgate
 from repro_torch.kernels.sssj_join import kernel as tkernel
 from repro_torch.kernels.sssj_join import ops as tops
 from repro_torch.obs import MetricsRegistry
+from repro_torch.launch.serve import run_service
 from repro_torch.runtime import MultiTenantRuntime, RequestRouter, TenantTable
-from repro_torch.serving import MultiTenantSSSJService, SSSJService
+from repro_torch.serving import LMEmbedder, MultiTenantSSSJService, SSSJService
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORT = os.path.join(_ROOT, "src", "repro_torch")
@@ -72,6 +74,11 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.engine.sharded, repro_torch.core.distributed\n"
         "import repro_torch.launch, repro_torch.launch.mesh\n"
         "import repro_torch.distributed, repro_torch.distributed.sharding\n"
+        "import repro_torch.configs, repro_torch.configs.base, repro_torch.models\n"
+        "import repro_torch.models.common, repro_torch.models.mlp\n"
+        "import repro_torch.models.attention, repro_torch.models.lm\n"
+        "import repro_torch.models.convert, repro_torch.serving.embedder\n"
+        "import repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -98,7 +105,9 @@ def test_port_sources_found():
             "chip_smoke.py", "chip_turns.py", "service.py", "blocked.py",
             "pipeline.py", "spans.py", "bridge.py", "registry.py", "runtime.py",
             "tenants.py", "router.py", "synth.py", "sharded.py", "distributed.py",
-            "mesh.py", "sharding.py"} <= names
+            "mesh.py", "sharding.py", "base.py", "qwen3_0_6b.py", "common.py",
+            "mlp.py", "attention.py", "lm.py", "convert.py", "embedder.py",
+            "serve.py"} <= names
 
 
 def _no_gpu(monkeypatch):
@@ -123,8 +132,10 @@ def test_engine_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
                                TenantTable.uniform(2, 0.9, 0.1)),
     lambda: MultiTenantSSSJService(TenantTable.uniform(2, 0.9, 0.1), dim=8,
                                    capacity=64, micro_batch=8),
+    lambda: LMEmbedder(ARCHS["qwen3-0.6b"].reduced()),
+    lambda: run_service("qwen3-0.6b", requests=1, verbose=False),
 ], ids=["SSSJService", "BlockedStreamJoiner", "DedupFilter", "MultiTenantRuntime",
-        "MultiTenantSSSJService"])
+        "MultiTenantSSSJService", "LMEmbedder", "run_service"])
 def test_consumers_default_to_cuda_and_raise_without_gpu(monkeypatch, make):
     _no_gpu(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):

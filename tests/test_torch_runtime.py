@@ -10,31 +10,43 @@ and kinds; scores ``atol=1e-5``.  Pair sets are held identical outside an
 ε-band of 1e-5 around each tenant's θ; these streams have no pair in the
 band, which the tests check.  Also: the tenant table, the config's quota
 validation, the router (a copy of the reference's), quota isolation under
-a bursty tenant, identical streams that never cross, and the
-multi-tenant service's namespaced groups.
+a bursty tenant, identical streams that never cross, the
+multi-tenant service's namespaced groups, and the fused embed→join
+(token submissions embedded inside the step by the reduced qwen3-0.6b
+on the reference's parameters, carried across) against the host round
+trip and the reference's fused runtime and service.  On a named CUDA
+device (never touched) the kernel route's tenant step refuses joins
+smaller than one tile.
 """
 
+import dataclasses
 import json
 import os
 import re
 
 import numpy as np
 import pytest
+import torch
 
 from repro.engine import EngineConfig as JConfig
 from repro.runtime import MultiTenantRuntime as JRuntime
 from repro.runtime import RequestRouter as JRouter
 from repro.runtime import TenantTable as JTable
 from repro.serving import MultiTenantSSSJService as JService
+from repro_torch.configs import ARCHS
 from repro_torch.data import bursty_tenant_traffic, dense_embedding_stream
 from repro_torch.engine import EngineConfig
+from repro_torch.launch import make_mesh_for
+from repro_torch.models import params_from_numpy
 from repro_torch.runtime import (
+    FusedEmbedder,
     MultiTenantRuntime,
     RequestRouter,
     TenantBackpressure,
     TenantTable,
+    make_tenant_batch_step,
 )
-from repro_torch.serving import MultiTenantSSSJService
+from repro_torch.serving import LMEmbedder, MultiTenantSSSJService
 
 CPU = "cpu"
 SCORE_ATOL = 1e-5
@@ -476,15 +488,189 @@ def test_multi_tenant_service_namespaced_groups(eviction):
         assert svc.runtime.cfg.quotas == ref.runtime.cfg.quotas
 
 
-def test_multi_tenant_service_refuses_unported_variants():
+def test_multi_tenant_service_refuses_unported_variants(embedders):
     table = TenantTable.uniform(2, 0.9, 0.1)
     with pytest.raises(TypeError, match="Mesh"):     # mesh= takes a port Mesh
         MultiTenantSSSJService(table, dim=32, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MultiTenantSSSJService(table, dim=32, fused=object(), device=CPU)
+    # fused= is ported: the reference's validation, d_model 64 against d 32
+    emb = embedders[1]
+    with pytest.raises(ValueError, match="d_model"):
+        MultiTenantSSSJService(table, dim=32, device=CPU,
+                               fused=FusedEmbedder(emb.cfg, emb.params, 16))
     for quotas in ((32, 31), (64,), (64, 0)):     # sum, count, an empty quota
         with pytest.raises(ValueError):
             MultiTenantSSSJService(table, dim=32, capacity=64, eviction="quota",
                                    quotas=quotas, device=CPU)
     with pytest.raises(ValueError):                 # quotas off-quota
         MultiTenantSSSJService(table, dim=32, capacity=64, quotas=(32, 32), device=CPU)
+
+
+# --------------------------------------------------------------------- #
+# fused embed→join
+# --------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def embedders():
+    """The reference's reduced qwen3-0.6b embedder and the port's on its
+    parameters, carried across."""
+    import jax
+    from repro.configs import ARCHS as JARCHS
+    from repro.serving.embedder import LMEmbedder as JEmbedder
+
+    jemb = JEmbedder(JARCHS["qwen3-0.6b"].reduced(), key=jax.random.key(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, jemb.params), CPU)
+    return jemb, LMEmbedder(ARCHS["qwen3-0.6b"].reduced(), params, device=CPU)
+
+
+FUSED_S, FUSED_N = 32, 56
+FUSED_THETAS, FUSED_LAMS = [0.9, 0.85, 0.9], [0.1, 0.05, 0.1]
+
+
+def _fused_traffic():
+    """The reference test's traffic: 56 one-document submits over three
+    tenants, four copies of one document planted in tenant 1."""
+    rng = np.random.default_rng(7)
+    toks = rng.integers(1, 500, (FUSED_N, FUSED_S)).astype(np.int32)
+    tenants = rng.integers(0, 3, FUSED_N)
+    plant = np.where(tenants == 1)[0][:4]
+    for i in plant[1:]:
+        toks[i] = toks[plant[0]]
+    return toks, tenants, np.cumsum(rng.exponential(0.05, FUSED_N))
+
+
+def _fused_cfg_kw():
+    return _cfg_kw(capacity=256, micro_batch=16, block_q=16, block_w=16, chunk_d=64)
+
+
+def _run_fused(rts, data):
+    """One-document submits into every runtime (``data[i]`` its payloads),
+    the same uids in all; then a final flush and a drain with masks."""
+    toks, tenants, ts = _fused_traffic()
+    for i in range(FUSED_N):
+        k = int(tenants[i])
+        uids = [rt.submit(k, d[i:i + 1], ts[i:i + 1]) for rt, d in zip(rts, data)]
+        for u in uids[1:]:
+            assert u.tolist() == uids[0].tolist()
+    for rt in rts:
+        rt.flush(final=True)
+    return [rt.drain_arrays(return_masks=True) for rt in rts]
+
+
+def test_fused_embed_join_matches_host_roundtrip(embedders):
+    """In the port, embedding inside the step (micro-batches of 16) emits
+    the pairs, scores and masks of embedding on the host (one document a
+    call) and submitting vectors.  Measured on the CPU: bit-identical, as
+    in the reference; the H100 run states its own tolerance."""
+    _, emb = embedders
+    toks = _fused_traffic()[0]
+    table = TenantTable(FUSED_THETAS, FUSED_LAMS)
+    cfg = EngineConfig(**_fused_cfg_kw())
+    rt_f = MultiTenantRuntime(cfg, table, span=2, device=CPU,
+                              fused=FusedEmbedder(emb.cfg, emb.params, FUSED_S))
+    rt_h = MultiTenantRuntime(cfg, table, span=2, device=CPU)
+    host = np.concatenate([emb(toks[i:i + 1]) for i in range(FUSED_N)])
+    (fa, fb, fs, fm), (ha, hb, hs, hm) = _run_fused([rt_f, rt_h], [toks, host])
+    assert fa.size > 0                       # the planted copies emitted
+    np.testing.assert_array_equal(fa, ha)
+    np.testing.assert_array_equal(fb, hb)
+    np.testing.assert_array_equal(fs, hs)
+    np.testing.assert_array_equal(fm, hm)
+
+
+def test_fused_runtime_matches_reference(embedders):
+    """The port's fused runtime against the reference's on the same
+    parameters and traffic: pairs and masks equal, none in the band,
+    scores within 1e-5."""
+    from repro.runtime import FusedEmbedder as JFused
+
+    jemb, emb = embedders
+    toks = _fused_traffic()[0]
+    kw = _fused_cfg_kw()
+    rt = MultiTenantRuntime(EngineConfig(**kw), TenantTable(FUSED_THETAS, FUSED_LAMS),
+                            span=2, device=CPU,
+                            fused=FusedEmbedder(emb.cfg, emb.params, FUSED_S))
+    jrt = JRuntime(JConfig(**kw, join_impl="pallas"), JTable(FUSED_THETAS, FUSED_LAMS),
+                   span=2, fused=JFused(jemb.cfg, jemb.params, FUSED_S))
+    (ga, gb, gs, gm), (wa, wb, ws, wm) = _run_fused([rt, jrt], [toks, toks])
+    assert ga.size > 0
+    theta = np.asarray(FUSED_THETAS)[_fused_traffic()[1][ga]]
+    assert np.all(np.abs(gs - theta) > BAND)
+    np.testing.assert_array_equal(ga, wa)
+    np.testing.assert_array_equal(gb, wb)
+    np.testing.assert_allclose(gs, ws, atol=SCORE_ATOL)
+    np.testing.assert_array_equal(gm, wm)
+    assert _stats_without_delays(rt) == _stats_without_delays(jrt)
+
+
+def test_fused_embedder_validation(embedders):
+    """The reference's ``test_fused_embedder_validation``: d_model against
+    the engine's d, and the token width of a submission."""
+    _, emb = embedders
+    table = TenantTable.uniform(2, 0.9, 0.1)
+    with pytest.raises(ValueError, match="d_model"):     # 64 != 32
+        MultiTenantRuntime(EngineConfig(**_cfg_kw(d=32)), table, device=CPU,
+                           fused=FusedEmbedder(emb.cfg, emb.params, 16))
+    rt = MultiTenantRuntime(EngineConfig(**_cfg_kw(capacity=256)), table, device=CPU,
+                            fused=FusedEmbedder(emb.cfg, emb.params, 16))
+    with pytest.raises(ValueError, match="tokens"):      # wrong token width
+        rt.submit(0, np.zeros((2, 8), np.int32), np.zeros(2))
+    with pytest.raises(NotImplementedError, match="single-device"):
+        MultiTenantSSSJService(table, dim=64, capacity=256, micro_batch=16,
+                               mesh=make_mesh_for((2,), ("data",), devices=[CPU] * 2),
+                               fused=FusedEmbedder(emb.cfg, emb.params, 16))
+
+
+def test_fused_service_matches_reference(embedders):
+    """``MultiTenantSSSJService(fused=...)`` takes token batches: its
+    flushed pairs and groups equal the reference service's."""
+    from repro.runtime import FusedEmbedder as JFused
+
+    jemb, emb = embedders
+    toks, tenants, ts = _fused_traffic()
+    table = (FUSED_THETAS, FUSED_LAMS)
+    svc = MultiTenantSSSJService(TenantTable(*table), dim=64, capacity=256,
+                                 micro_batch=16, device=CPU,
+                                 fused=FusedEmbedder(emb.cfg, emb.params, FUSED_S))
+    ref = JService(JTable(*table), dim=64, capacity=256, micro_batch=16,
+                   fused=JFused(jemb.cfg, jemb.params, FUSED_S))
+    for k in range(3):
+        rows = np.where(tenants == k)[0]
+        for s in (svc, ref):
+            s.submit(k, toks[rows], ts[rows])
+    got, want = svc.flush(final=True), ref.flush(final=True)
+    assert got.keys() == want.keys() and 1 in got
+    for k in got:
+        assert [p[:2] for p in got[k]] == [p[:2] for p in want[k]]
+        np.testing.assert_allclose([p[2] for p in got[k]], [p[2] for p in want[k]],
+                                   atol=SCORE_ATOL)
+    for k in range(3):
+        assert svc.duplicate_groups(k) == ref.duplicate_groups(k)
+    assert [0, 1, 2, 3] in svc.duplicate_groups(1)
+
+
+# --------------------------------------------------------------------- #
+# a join smaller than one tile on the card
+# --------------------------------------------------------------------- #
+CUDA0 = torch.device("cuda", 0)   # named, never touched: no card is needed
+
+
+@pytest.mark.parametrize("kw", [
+    dict(capacity=64, block_w=128, block_q=16),   # window under one tile
+    dict(micro_batch=16, block_q=32),             # queries under one tile
+    dict(micro_batch=16, block_w=32),             # the self join under one tile
+    dict(d=16, chunk_d=32),                       # d under one chunk
+], ids=["capacity", "block_q", "self", "chunk_d"])
+def test_tenant_step_refuses_sub_tile_joins_on_cuda(kw, embedders):
+    """On a CUDA device the kernel route's tenant step (fused too) refuses
+    a join smaller than one tile, which the join wrapper would run as the
+    dense reference; the CPU step and the card's dense oracle run it."""
+    cfg = EngineConfig(**_cfg_kw(**kw))
+    table = TenantTable.uniform(2, 0.9, 0.1)
+    with pytest.raises(ValueError, match="smaller than one"):
+        make_tenant_batch_step(cfg, table, device=CUDA0)
+    emb = embedders[1]
+    with pytest.raises(ValueError, match="smaller than one"):
+        make_tenant_batch_step(cfg, table, FusedEmbedder(emb.cfg, emb.params, 8),
+                               device=CUDA0)
+    make_tenant_batch_step(cfg, table, device=CPU)
+    make_tenant_batch_step(dataclasses.replace(cfg, join_impl="dense"), table,
+                           device=CUDA0)
