@@ -36,7 +36,7 @@ kernel timings, see ``main``):
       requests of 4,096: pairs, duplicate groups, snapshot and
       Prometheus text; its candidate buffers' bytes and merge time;
    c. ``BlockedStreamJoiner`` at 128 x 128 tiles (``tile_k`` 16,384);
-   d. ``TokenPipeline`` with ``DedupFilter(dim=1024, capacity=262144,
+   d. ``TokenPipeline`` with ``DedupFilter(dim=1024, capacity=65536,
       block=64)`` for ``PIPELINE_STEPS`` steps, until its ring wraps, its
       keep-masks against the same pipeline's whose filter runs
       ``join_impl="dense"`` (equal outside documents whose exact best
@@ -77,6 +77,21 @@ kernel timings, see ``main``):
    m. ``MultiTenantSSSJService(fused=FusedEmbedder(...))`` over 8
       tenants and 2,048 documents against the same service fed host
       embeddings;
+   n. the gate's bits held exactly: ``topic_drift_stream`` (32,768
+      items, d 1,024) into ``StreamEngine(theta=0.9, lam=1e-3,
+      capacity=16384)``, one micro-batch a request; before each push
+      ``strip_gate`` on the card (``gate_ub``) and on CPU copies
+      (``gate_ub_plain``), bits and prune stats equal but for counted
+      bits within ``FLOAT_TOL`` of θ; value bounds must skip tiles, and
+      the pairs must be a ``join_impl="dense"`` engine's;
+   o. the paper's joiners: the four Table-1 streams (``DATASET_SPECS``
+      at their synthetic sizes, θ 0.5, λ 0.01) through the port's STR-L2
+      on the host, in a spawned pool, and densified through the engine
+      on the kernel route (timed once the pool has finished) with a
+      ring that holds each whole stream: pair
+      sets equal outside the ε-band, scores within ``FLOAT_TOL``,
+      nothing dropped or overwritten, the host's ``Counters`` under
+      ``paper/*`` in the engine's snapshot;
 5. flash attention through ``repro_torch.kernels.flash_attention`` at
    the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
    qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
@@ -91,7 +106,7 @@ kernel timings, see ``main``):
    ``device_ms``, the plain version's and the library call's beside) and
    bound of each kernel, the launches counted over the run of its own
    path (flash attention's: phase 4l's), and over each path of phases
-   3-4m (``launches_by_path``), after a line with the script's total
+   3-4o (``launches_by_path``), after a line with the script's total
    seconds;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -788,64 +803,105 @@ def _ring_counts(state) -> dict:
             "window_overflow": [int(r.overflow.item()) for r in rings]}
 
 
-def _drive_engine(eng, dev, requests, n_profiled=2):
+def _drive_engine(eng, dev, requests, n_profiled=2, before_push=None, drain_every=0):
     """Stream ``requests`` through ``eng``: all but the last ``n_profiled``
-    timed (pushes and drain, host clock, ending in a device sync), the
-    last ones under the profiler.  Returns the drained pairs and row masks
-    of the whole stream, and closes the engine."""
+    timed (pushes and drains, host clock, ending in a device sync), the
+    last ones under the profiler.  The engine drains after every
+    ``drain_every`` pushes (0: at the end alone).  With ``before_push``,
+    ``before_push(m, eng, v, t, dev)`` runs before push ``m`` off the
+    clock, and each push with its drain is timed alone and counted with
+    :func:`_count_launches` (``launches``: their sum; without the hook
+    the caller counts).  Returns the drained pairs and row masks of the
+    whole stream, and closes the engine."""
 
-    def push_all(reqs):
-        for v, t in reqs:
-            eng.push(v, t)
-        return eng.drain_arrays(return_masks=True)
+    def push(m, v, t, parts, last):
+        eng.push(v, t)
+        if m + 1 == last or (drain_every and (m + 1) % drain_every == 0):
+            parts.append(eng.drain_arrays(return_masks=True))
+
+    def push_all(reqs, m0=0):
+        parts = []
+        for m, (v, t) in enumerate(reqs, m0):
+            push(m, v, t, parts, m0 + len(reqs))
+        return parts
+
+    def push_one(m, v, t, parts):
+        sync(dev)
+        t0 = time.monotonic()
+        push(m, v, t, parts, n_timed)
+        sync(dev)
+        return time.monotonic() - t0
 
     n_timed = len(requests) - n_profiled
     timed, profiled = requests[:n_timed], requests[n_timed:]
     try:
-        sync(dev)
-        t0 = time.monotonic()
-        parts = [push_all(timed)]
-        sync(dev)
-        seconds = time.monotonic() - t0
+        launches = None
+        if before_push is None:
+            sync(dev)
+            t0 = time.monotonic()
+            parts = push_all(timed)
+            sync(dev)
+            seconds = time.monotonic() - t0
+        else:
+            parts, seconds, launches = [], 0.0, dict.fromkeys(_launch_counters(), 0)
+            for m, (v, t) in enumerate(timed):
+                before_push(m, eng, v, t, dev)
+                s, got = _count_launches(lambda: push_one(m, v, t, parts))
+                seconds += s
+                launches = {k: n + got[k] for k, n in launches.items()}
         prof = None
         if profiled:
-            last, prof = _profile(lambda: push_all(profiled), dev)
-            parts.append(last)
+            last, prof = _profile(lambda: push_all(profiled, n_timed), dev)
+            parts += last
         ua, ub, sc, mask = (np.concatenate(x) for x in zip(*parts))
         return {"pairs": (ua, ub, sc), "mask": mask, "seconds": seconds,
                 "timed_items": sum(len(v) for v, _ in timed), "profile": prof,
                 "stats": eng.stats(), "metrics": eng.metrics(),
-                "rings": _ring_counts(eng.state)}
+                "rings": _ring_counts(eng.state), "launches": launches}
     finally:
         eng.close()
 
 
 def _check_same_emission(a, b, label, theta=THETA):
     """Two engine runs over one stream drained the same pairs: every
-    pair finite, ≥ θ and newer-first; the pair sets equal outside the
+    pair finite, ≥ θ, newer-first and emitted once; the pair sets equal outside the
     ε-band around θ; common scores within ``FLOAT_TOL``; row masks (where
-    both runs drained them) equal outside the rows of band pairs.  Returns
-    ``(band pairs, max score error)``."""
+    both runs drained them) equal outside the rows of band pairs.  Keys
+    are matched by sorting in numpy (phase 4n holds ~55 M pairs).
+    Returns ``(band pairs {(uid_a, uid_b): score}, max score error)``."""
+    keys, scores = [], []
     for ua, ub, sc in (a["pairs"], b["pairs"]):
+        ua, ub, sc = np.asarray(ua), np.asarray(ub), np.asarray(sc)
         if not (np.isfinite(sc).all() and (sc >= np.float32(theta)).all()
                 and (ua > ub).all() and (ub >= 0).all()):
             raise AssertionError(f"{label}: emitted pairs are not finite, ≥ θ, newer-first")
-    ap, bp = ({(x, y): s for x, y, s in zip(*(v.tolist() for v in r["pairs"]))}
-              for r in (a, b))
-    differ = ap.keys() ^ bp.keys()
-    band = {k: {**ap, **bp}[k] for k in differ}
-    outside = {k: s for k, s in band.items() if abs(s - theta) > BAND}
+        k = (ua.astype(np.int64) << 32) | ub.astype(np.int64)
+        order = np.argsort(k, kind="stable")
+        if (np.diff(k[order]) == 0).any():
+            raise AssertionError(f"{label}: a pair was emitted twice")
+        keys.append(k[order])
+        scores.append(sc[order])
+    ka, kb = keys
+    pos = np.minimum(np.searchsorted(ka, kb), max(len(ka) - 1, 0))
+    in_a = ka[pos] == kb if len(ka) else np.zeros(len(kb), bool)
+    only_a = np.ones(len(ka), bool)
+    only_a[pos[in_a]] = False
+    band_keys = np.concatenate([ka[only_a], kb[~in_a]])
+    band_scores = np.concatenate([scores[0][only_a], scores[1][~in_a]]).astype(np.float64)
+    band = {(int(k >> 32), int(k & 0xFFFFFFFF)): float(v)
+            for k, v in zip(band_keys, band_scores)}
+    outside = {k: v for k, v in band.items() if abs(v - theta) > BAND}
     if outside:
         raise AssertionError(f"{label}: pair sets differ outside the ε-band: "
                              f"{list(outside.items())[:5]}")
-    score_err = max((abs(ap[k] - bp[k]) for k in ap.keys() & bp.keys()), default=0.0)
+    diff = np.abs(scores[0][pos[in_a]].astype(np.float64) - scores[1][in_a])
+    score_err = float(diff.max(initial=0.0))
     if score_err > FLOAT_TOL:
         raise AssertionError(f"{label}: pair scores differ by {score_err}")
-    band_rows = {x for x, _ in differ}
     if a.get("mask") is not None and b.get("mask") is not None:
-        mask_diff = set(np.nonzero(a["mask"] != b["mask"])[0].tolist())
-        if not mask_diff <= band_rows:
-            raise AssertionError(f"{label}: row masks differ at rows {sorted(mask_diff)[:10]}")
+        mask_diff = np.nonzero(a["mask"] != b["mask"])[0]
+        if not np.isin(mask_diff, band_keys >> 32).all():
+            raise AssertionError(f"{label}: row masks differ at rows {mask_diff[:10].tolist()}")
     return band, score_err
 
 
@@ -946,9 +1002,12 @@ CONSUMER_BLOCK = 64
 # TokenPipeline at qwen3's vocabulary, a batch of 256 documents of 2,048
 # tokens, 15 % planted near-duplicates of the step before
 PIPELINE = dict(vocab_size=151936, batch=256, seq_len=2048, dup_frac=0.15)
-# enough steps that the filter's ring wraps: 1,024 batches of 256 fill its
-# 262,144 slots, 6 more overwrite the oldest 1,536
-PIPELINE_STEPS = CAPACITY // PIPELINE["batch"] + 6
+# the filter's window: 65,536 slots (the main path's 262,144 cut by four for
+# the script's time; the ring wraps all the same)
+PIPELINE_CAPACITY = 65536
+# enough steps that the filter's ring wraps: 256 batches of 256 fill its
+# 65,536 slots, 6 more overwrite the oldest 1,536
+PIPELINE_STEPS = PIPELINE_CAPACITY // PIPELINE["batch"] + 6
 
 
 def _launch_counters() -> dict:
@@ -1265,7 +1324,7 @@ def _near_theta_rows(engine, tokens, rows, uid0: int, t: float) -> dict:
 
 
 def phase_dedup(dev, smi) -> dict:
-    """``TokenPipeline`` with ``DedupFilter(dim=1024, capacity=262144,
+    """``TokenPipeline`` with ``DedupFilter(dim=1024, capacity=65536,
     block=64)`` for ``PIPELINE_STEPS`` steps, so that the filter's ring
     wraps, in lockstep with the same pipeline whose filter's engine runs
     ``join_impl="dense"``.  Each step's keep-masks must be equal outside
@@ -1282,7 +1341,8 @@ def phase_dedup(dev, smi) -> dict:
     band = []   # (step, document, best exact score) where the masks differ
 
     def pipeline(dense: bool, kern_rec=None):
-        filt = DedupFilter(dim=D, capacity=CAPACITY, block=CONSUMER_BLOCK, device=dev)
+        filt = DedupFilter(dim=D, capacity=PIPELINE_CAPACITY, block=CONSUMER_BLOCK,
+                           device=dev)
         if dense:
             filt.engine.close()
             filt.engine = StreamEngine(dataclasses.replace(filt.cfg, join_impl="dense"),
@@ -1332,7 +1392,7 @@ def phase_dedup(dev, smi) -> dict:
     n_micro = PIPELINE_STEPS * -(-PIPELINE["batch"] // CONSUMER_BLOCK)
     _expect_launches("dedup", launches, n_micro)
     filt = kern_pipe.dedup
-    if not filt.n_seen > CAPACITY:
+    if not filt.n_seen > PIPELINE_CAPACITY:
         raise AssertionError(f"dedup: {filt.n_seen} documents never wrap the ring")
     if not filt.n_dropped > 0:
         raise AssertionError("dedup: no planted duplicate was dropped")
@@ -1340,7 +1400,7 @@ def phase_dedup(dev, smi) -> dict:
     dense_pipe.dedup.engine.close()
     docs = PIPELINE_STEPS * PIPELINE["batch"]
     rec = {"phase": "dedup", "nvidia_smi": smi, "pipeline": PIPELINE,
-           "steps": PIPELINE_STEPS, "documents": docs, "capacity": CAPACITY,
+           "steps": PIPELINE_STEPS, "documents": docs, "capacity": PIPELINE_CAPACITY,
            "ring_wrapped": True, "dropped": filt.n_dropped,
            "oracle_dropped": dense_pipe.dedup.n_dropped,
            "band_documents": [{"step": a, "document": r, "score": b} for a, r, b in band],
@@ -2169,6 +2229,284 @@ def phase_sharded_service(dev, smi, stream) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phases 4n-4o: the gate's bits held exactly; the paper's joiners
+# --------------------------------------------------------------------- #
+# 4n: topically clustered traffic, so that the value bounds decide strips:
+# at rate 1000 the horizon (≈105 time units, ≈105,000 items) outlasts the
+# 16,384-slot ring, which the 32,768 items wrap twice, so the time bound
+# kills nothing.  Items of one topic score 0.91-0.96 against each other,
+# so about 55 M pairs come out (up to ~516,000 a micro-batch): tile_k holds
+# a whole tile and max_pairs twice the largest micro-batch, so that nothing
+# is dropped and every pair is held
+DRIFT = dict(n=32768, d=1024, seg=512, rate=1000.0)
+DRIFT_CFG = dict(theta=0.9, lam=1e-3, capacity=16384, d=1024, micro_batch=128,
+                 tile_k=128 * 128, max_pairs=1 << 20)
+DRIFT_DRAIN = 16     # pushes between drains: bounds the pinned copies held
+# 4o: the four Table-1 streams at their synthetic sizes (DATASET_SPECS),
+# STR-L2 on the host against the engine with a ring that holds the whole
+# stream (capacity ≥ n: nothing is overwritten, so the pair set is the
+# paper's)
+TABLE1 = ("webspam", "rcv1", "blogs", "tweets")
+TABLE1_THETA, TABLE1_LAM = 0.5, 0.01
+TABLE1_REQUEST = 1024
+# tile_k holds a whole 128 x 128 tile, so no tile can drop a pair;
+# max_pairs holds a micro-batch's pairs on tweets' bursts
+TABLE1_TILE_K = 128 * 128
+TABLE1_MAX_PAIRS = 65536
+
+
+class _GateBits:
+    """Before each push: ``strip_gate`` on the card (``gate_ub``) and on
+    CPU copies (``gate_ub_plain``) over the window's strip summary and the
+    micro-batch as the engine takes it; bits and prune stats must be
+    equal, but for bits whose plain bound lies within ``FLOAT_TOL`` of θ."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.card, self.plain = np.zeros(3, np.int64), np.zeros(3, np.int64)
+        self.bits = self.near = 0
+        self.differ = []   # (micro-batch, query tile, strip, plain bound)
+
+    def __call__(self, m, eng, v, t, dev):
+        import torch
+        from repro_torch.engine.engine import pad_request
+        from repro_torch.kernels.sssj_join import gate as g
+
+        cfg = self.cfg
+        _, qs, tqs, _, _ = pad_request(v, t, 0, cfg.micro_batch)
+        q = torch.from_numpy(qs[0])
+        kw = dict(block_q=cfg.block_q, chunk_d=cfg.chunk_d,
+                  tq_lo=float(tqs[0].min()), tq_hi=float(tqs[0].max()))
+        summary = eng.state.summary
+        gate_c, st_c = g.strip_gate(q.to(dev), summary, th_min=cfg.theta,
+                                    lam_min=cfg.lam, device=dev, **kw)
+        cpu = g.StripSummary(*(x.cpu() for x in summary))
+        gate_p, st_p = g.strip_gate(q, cpu, th_min=cfg.theta, lam_min=cfg.lam,
+                                    device="cpu", **kw)
+        bound, _ = g.strip_bound(q, cpu, lam_min=cfg.lam, **kw)
+        near = (bound - cfg.theta).abs() <= FLOAT_TOL
+        diff = gate_c.cpu() != gate_p
+        if bool((diff & ~near).any()):
+            at = torch.nonzero(diff & ~near)[:5].tolist()
+            raise AssertionError(f"gate bits: card and plain differ at micro-batch {m}, "
+                                 f"(tile, strip) {at}, away from θ")
+        st_c, st_p = st_c.cpu().numpy(), st_p.numpy()
+        if not diff.any() and not np.array_equal(st_c, st_p):
+            raise AssertionError(f"gate stats at micro-batch {m}: card {st_c.tolist()} "
+                                 f"vs plain {st_p.tolist()}")
+        self.differ += [(m, i, s, float(bound[i, s])) for i, s in torch.nonzero(diff).tolist()]
+        self.card += st_c
+        self.plain += st_p
+        self.bits += gate_p.numel()
+        self.near += int(near.sum())
+
+
+def phase_gate_bits(dev, smi) -> dict:
+    """4n: ``topic_drift_stream`` into ``StreamEngine`` on the kernel route
+    with the gate on, one micro-batch a request, the gate's bits held
+    before each push (:class:`_GateBits`).  The value bounds must skip
+    tiles (``engine/prune/tiles_skipped_l2 > 0``), the engine's prune
+    stats must be the card's gate's, and the drained pairs must be those
+    of the same stream through ``join_impl="dense"`` on the card."""
+    from repro_torch.data import topic_drift_stream
+    from repro_torch.engine import EngineConfig, StreamEngine
+
+    t0 = time.monotonic()
+    vecs, ts = topic_drift_stream(DRIFT["n"], DRIFT["d"], seg=DRIFT["seg"],
+                                  rate=DRIFT["rate"], seed=SEED)
+    cfg = EngineConfig(**DRIFT_CFG)
+    mb = cfg.micro_batch
+    requests = [(vecs[i:i + mb], ts[i:i + mb]) for i in range(0, len(vecs), mb)]
+    check = _GateBits(cfg)
+    kern = _drive_engine(StreamEngine(cfg, device=dev), dev, requests, n_profiled=0,
+                         before_push=check, drain_every=DRIFT_DRAIN)
+    launches = kern["launches"]
+    _expect_launches("gate bits", launches, len(requests))
+    prune = {k: v for k, v in kern["metrics"].items() if k.startswith("engine/prune/")}
+    if not prune["engine/prune/tiles_skipped_l2"] > 0:
+        raise AssertionError(f"gate bits: the value bounds skipped no tile: {prune}")
+    engine_stats = [prune[f"engine/prune/{k}"] for k in PRUNE_KEYS]
+    if engine_stats != check.card.tolist():
+        raise AssertionError(f"gate bits: the engine's prune stats {engine_stats} are not "
+                             f"the card's gate's {check.card.tolist()}")
+    dense = _drive_engine(StreamEngine(EngineConfig(**DRIFT_CFG, join_impl="dense"),
+                                       device=dev), dev, requests, n_profiled=0,
+                          drain_every=DRIFT_DRAIN)
+    band, score_err = _check_same_emission(kern, dense, "gate bits: kernel vs dense",
+                                           theta=cfg.theta)
+    st = kern["stats"]
+    for key in ("pairs_dropped", "window_overflow", "n_items"):
+        if st[key] != dense["stats"][key]:
+            raise AssertionError(f"gate bits: {key} {st[key]} vs dense {dense['stats'][key]}")
+    if st["pairs_dropped"] or not st["window_overflow"] or not len(kern["pairs"][0]):
+        raise AssertionError(f"gate bits: dropped pairs, an unwrapped ring or no pair: {st}")
+    rec = {"phase": "gate_bits", "nvidia_smi": smi, "stream": DRIFT, "config": DRIFT_CFG,
+           "micro_batches": len(requests), "gate_bits": check.bits,
+           "near_theta_bits": check.near, "bits_differ": len(check.differ),
+           "differ": check.differ[:20],
+           "card_stats": dict(zip(PRUNE_KEYS, check.card.tolist())),
+           "plain_stats": dict(zip(PRUNE_KEYS, check.plain.tolist())),
+           "tiles_total": st["tiles_total"], "chunks_executed": st["chunks_executed"],
+           "window_overflow": st["window_overflow"], "pairs": len(kern["pairs"][0]),
+           "dense_pairs": len(dense["pairs"][0]), "band_pairs": len(band),
+           "band": [[x, y, sc] for (x, y), sc in sorted(band.items())][:20],
+           "max_score_err": score_err, "launches": launches,
+           "items_per_s": DRIFT["n"] / kern["seconds"],
+           "dense_items_per_s": DRIFT["n"] / dense["seconds"],
+           "phase_s": time.monotonic() - t0}
+    emit(rec)
+    return launches
+
+
+def _table1_stream(name: str, n=None, dims=None):
+    """``synthetic_stream(DATASET_SPECS[name], seed=SEED)`` with each
+    timestamp rounded to f32, as the engine's ``pad_request`` takes it
+    (bursty streams reach t ≈ 5·10⁴, where one f32 ulp moves the decay by
+    more than ``BAND``).  ``n``/``dims`` cut the stream (CPU rehearsals)."""
+    import dataclasses
+
+    from repro_torch.core import StreamItem
+    from repro_torch.data import DATASET_SPECS, synthetic_stream
+
+    spec = DATASET_SPECS[name]
+    if n is not None:
+        spec = dataclasses.replace(spec, n=n, dims=dims)
+    items = synthetic_stream(spec, seed=SEED)
+    return spec, [StreamItem(it.uid, float(np.float32(it.t)), it.vec) for it in items]
+
+
+def _table1_host_join(name: str, cut: dict) -> dict:
+    """One stream through the port's STR-L2 on the host (a spawned pool
+    worker): its pairs as arrays, its ``Counters`` and seconds."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import Counters, join_stream, make_joiner
+
+    t0 = time.monotonic()
+    _, items = _table1_stream(name, **cut)
+    gen_s = time.monotonic() - t0
+    c = Counters()
+    t0 = time.monotonic()
+    pairs = join_stream(make_joiner("STR", "L2", TABLE1_THETA, TABLE1_LAM, counters=c),
+                        items)
+    seconds = time.monotonic() - t0
+    return {"newer": np.array([max(p.uid_a, p.uid_b) for p in pairs], np.int64),
+            "older": np.array([min(p.uid_a, p.uid_b) for p in pairs], np.int64),
+            "decayed": np.array([p.decayed for p in pairs], np.float64),
+            "counters": c.as_dict(), "seconds": seconds, "gen_s": gen_s}
+
+
+def _densify(items, dims: int) -> tuple:
+    """Sparse stream items as f32 rows and their (f32-exact) timestamps."""
+    nnz = [it.vec.nnz for it in items]
+    rows = np.repeat(np.arange(len(items)), nnz)
+    vecs = np.zeros((len(items), dims), np.float32)
+    vecs[rows, np.concatenate([it.vec.indices for it in items])] = np.concatenate(
+        [it.vec.values for it in items])
+    return vecs, np.array([it.t for it in items], np.float64)
+
+
+def phase_table1(dev, smi, names=TABLE1, cut=None) -> dict:
+    """4o: the four Table-1 streams through the port's STR-L2 on the host
+    (a spawned pool, one worker a stream: the parent has initialised CUDA,
+    so it is not forked) and, densified, through ``StreamEngine`` on the
+    kernel route in requests of 1,024, with a ring that holds the whole
+    stream.  The engine is timed once the pool has finished, so that the
+    host joins do not share its cores.  Held: pair sets equal outside the
+    ε-band, scores within ``FLOAT_TOL``, nothing dropped or overwritten,
+    and the host's ``Counters`` published into the engine's registry
+    beside ``engine/*``."""
+    import multiprocessing
+
+    from repro_torch.core import Counters
+    from repro_torch.engine import EngineConfig, StreamEngine
+    from repro_torch.obs import publish_counters
+
+    t0 = time.monotonic()
+    cut = cut or {}
+    launches = dict.fromkeys(_launch_counters(), 0)
+    out, streams = [], {}
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(len(names)) as pool:
+        jobs = {name: pool.apply_async(_table1_host_join, (name, cut)) for name in names}
+        for name in names:      # the same streams, densified while the pool joins
+            spec, items = _table1_stream(name, **cut)
+            streams[name] = (spec, *_densify(items, spec.dims))
+            del items
+        hosts = {name: job.get(timeout=900) for name, job in jobs.items()}
+    host_wall_s = time.monotonic() - t0
+    for name in names:
+        spec, vecs, ts = streams.pop(name)
+        host = hosts.pop(name)
+        n = len(vecs)
+        cfg = EngineConfig(theta=TABLE1_THETA, lam=TABLE1_LAM,
+                           capacity=-(-n // MICRO) * MICRO, d=spec.dims,
+                           micro_batch=MICRO, tile_k=TABLE1_TILE_K,
+                           max_pairs=TABLE1_MAX_PAIRS)
+        requests = [(vecs[i:i + TABLE1_REQUEST], ts[i:i + TABLE1_REQUEST])
+                    for i in range(0, n, TABLE1_REQUEST)]
+        del vecs
+        eng = StreamEngine(cfg, device=dev)
+        try:
+            def run():
+                sync(dev)
+                t1 = time.monotonic()
+                for v, t in requests:
+                    eng.push(v, t)
+                pairs = eng.drain_arrays()
+                sync(dev)
+                return pairs, time.monotonic() - t1
+
+            (pairs, seconds), got = _count_launches(run)
+            _expect_launches(f"table1 {name}", got, _n_micro(requests, MICRO))
+            del requests
+            for k, v in got.items():
+                launches[k] += v
+            band, err = _check_same_emission(
+                {"pairs": pairs},
+                {"pairs": (host["newer"], host["older"], host["decayed"])},
+                f"table1 {name}: engine vs host STR-L2", theta=TABLE1_THETA)
+            st = eng.stats()
+            if st["pairs_dropped"] or st["window_overflow"] or st["n_items"] != n:
+                raise AssertionError(f"table1 {name}: dropped or overwritten: {st}")
+            # the bridge: the host's counters in the engine's snapshot
+            publish_counters(eng.registry, Counters(**host["counters"]))
+            snap = eng.metrics()
+            if (snap.get("paper/pairs_emitted") != len(host["newer"])
+                    or snap.get("engine/n_items") != n):
+                raise AssertionError(f"table1 {name}: the snapshot's paper/* and "
+                                     f"engine/* disagree with the runs")
+        finally:
+            eng.close()
+        c = host["counters"]
+        rec = {"stream": name, "n": n, "dims": spec.dims, "avg_nnz": spec.avg_nnz,
+               "timestamps": spec.timestamps, "t_end": float(ts[-1]),
+               "pairs": len(host["newer"]), "engine_pairs": len(pairs[0]),
+               "band_pairs": len(band),
+               "band": [[a, b, s] for (a, b), s in sorted(band.items())][:10],
+               "max_score_err": err, "host_s": host["seconds"],
+               "host_gen_s": host["gen_s"], "engine_s": seconds,
+               "engine_items_per_s": n / seconds,
+               "launches": {"cand_kernel": got["sssj_cand"], "gate_ub": got["gate_ub"]},
+               **{k: c[k] for k in ("entries_traversed", "candidates_generated",
+                                    "full_sims_computed", "pairs_emitted")},
+               "paper_snapshot": {k: v for k, v in snap.items()
+                                  if k.startswith("paper/")},
+               "engine_prune": {k: v for k, v in snap.items()
+                                if k.startswith("engine/prune/")},
+               "tiles_total": st["tiles_total"], "chunks_executed": st["chunks_executed"]}
+        out.append(rec)
+        emit({"phase": "table1_stream", **rec})
+    emit({"phase": "table1", "nvidia_smi": smi, "theta": TABLE1_THETA, "lam": TABLE1_LAM,
+          "request": TABLE1_REQUEST, "tile_k": TABLE1_TILE_K,
+          "max_pairs": TABLE1_MAX_PAIRS, "seed": SEED, "launches": launches,
+          "streams": [{k: r[k] for k in ("stream", "n", "dims", "pairs", "band_pairs",
+                                         "host_s", "engine_items_per_s")} for r in out],
+          "host_wall_s": host_wall_s, "phase_s": time.monotonic() - t0})
+    return launches
+
+
+# --------------------------------------------------------------------- #
 # phases 4k-4m: the LM embedder and the system's serve path
 # --------------------------------------------------------------------- #
 # qwen3-0.6b at its full width (src/repro_torch/configs/qwen3_0_6b.py: 28
@@ -2779,6 +3117,8 @@ def main() -> int:
         by_path["ring_join"] = phase_ring_join(dev, smi, requests)
         by_path["sharded_service"] = phase_sharded_service(dev, smi, stream)
         del stream, kern_run
+        by_path["gate_bits"] = phase_gate_bits(dev, smi)
+        by_path["table1"] = phase_table1(dev, smi)
         t_lm = time.monotonic()
         cfg, params, lm_rec = lm_params(dev)
         by_path["lm_serve"] = phase_lm_serve(dev, smi, cfg, params, lm_rec)

@@ -2,7 +2,11 @@
 
 from .pipeline import DedupFilter, TokenPipeline, hashing_embed  # noqa: F401
 from .synth import (  # noqa: F401
+    DATASET_SPECS,
+    StreamSpec,
     bursty_tenant_traffic,
     dense_embedding_stream,
+    planted_duplicates,
+    synthetic_stream,
     topic_drift_stream,
 )

@@ -1,14 +1,98 @@
-"""Synthetic streams; numpy copies of ``repro.data.synth``'s
-:func:`dense_embedding_stream`, :func:`topic_drift_stream` and
-:func:`bursty_tenant_traffic` (same seeds give the same arrays)."""
+"""Synthetic streams; numpy copies of ``repro.data.synth``'s generators
+(same seeds give the same arrays and items).
+
+:func:`synthetic_stream` makes the scaled analogues of the paper's Table-1
+corpora (:data:`DATASET_SPECS`): sparse, unit-normalized rows whose term
+ids follow a Zipfian popularity law, per-item nnz log-normal around the
+target density, and poisson, sequential or bursty timestamps.  The dense
+generators feed the device engine.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import List
 
 import numpy as np
 
-__all__ = ["bursty_tenant_traffic", "dense_embedding_stream", "topic_drift_stream"]
+from ..core.types import StreamItem, make_sparse, unit_normalize
+
+__all__ = [
+    "StreamSpec",
+    "DATASET_SPECS",
+    "synthetic_stream",
+    "bursty_tenant_traffic",
+    "dense_embedding_stream",
+    "planted_duplicates",
+    "topic_drift_stream",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamSpec:
+    """Characteristics of a synthetic stream (a scaled Table-1 analogue)."""
+
+    name: str
+    n: int
+    dims: int
+    avg_nnz: float
+    timestamps: str  # "poisson" | "sequential" | "bursty"
+    zipf_a: float = 1.3
+    rate: float = 1.0  # mean arrivals per time unit
+
+
+# Scaled-down analogues of Table 1 (n reduced ~100–1000×, dims ~20×; density
+# and timestamp character preserved).
+DATASET_SPECS = {
+    "webspam": StreamSpec("webspam", 3_500, 8_192, 360.0, "poisson"),
+    "rcv1": StreamSpec("rcv1", 8_000, 4_096, 75.0, "sequential"),
+    "blogs": StreamSpec("blogs", 12_000, 8_192, 40.0, "bursty"),
+    "tweets": StreamSpec("tweets", 20_000, 16_384, 9.5, "bursty"),
+}
+
+
+def _timestamps(spec: StreamSpec, rng: np.random.Generator) -> np.ndarray:
+    if spec.timestamps == "sequential":
+        return np.arange(spec.n, dtype=np.float64) / spec.rate
+    if spec.timestamps == "poisson":
+        return np.cumsum(rng.exponential(1.0 / spec.rate, size=spec.n))
+    if spec.timestamps == "bursty":
+        # Burst process: exponential gaps whose rate itself jumps between a
+        # slow and a fast regime (heavy temporal clustering, like publishing
+        # dates around events).
+        gaps = np.empty(spec.n)
+        i = 0
+        while i < spec.n:
+            burst = int(rng.integers(5, 50))
+            fast = bool(rng.random() < 0.5)
+            rate = spec.rate * (10.0 if fast else 0.2)
+            k = min(burst, spec.n - i)
+            gaps[i : i + k] = rng.exponential(1.0 / rate, size=k)
+            i += k
+        return np.cumsum(gaps)
+    raise ValueError(f"unknown timestamp process {spec.timestamps!r}")
+
+
+def synthetic_stream(spec: StreamSpec, seed: int = 0) -> List[StreamItem]:
+    """Generate a sparse, unit-normalized, Zipf-termed stream."""
+    rng = np.random.default_rng(seed)
+    ts = _timestamps(spec, rng)
+    # Zipfian term popularity over the dimension space
+    ranks = np.arange(1, spec.dims + 1, dtype=np.float64)
+    probs = ranks ** (-spec.zipf_a)
+    probs /= probs.sum()
+    sigma = 0.6
+    mu = math.log(max(spec.avg_nnz, 1.5)) - sigma**2 / 2
+    items: List[StreamItem] = []
+    for i in range(spec.n):
+        nnz = int(np.clip(rng.lognormal(mu, sigma), 1, spec.dims // 2))
+        idx = np.unique(rng.choice(spec.dims, size=nnz, p=probs))
+        val = rng.random(idx.shape[0]) + 0.05
+        items.append(
+            StreamItem(i, float(ts[i]), unit_normalize(make_sparse(idx, val)))
+        )
+    return items
 
 
 def dense_embedding_stream(
@@ -121,3 +205,19 @@ def bursty_tenant_traffic(
         for s in streams
     ]
     return submits, per_tenant
+
+
+def planted_duplicates(
+    vectors: np.ndarray, ts: np.ndarray, theta: float, lam: float
+) -> set[tuple[int, int]]:
+    """Ground-truth decayed-similar pair set for a dense stream (testing)."""
+    sims = vectors @ vectors.T
+    dts = np.abs(ts[:, None] - ts[None, :])
+    dec = sims * np.exp(-lam * dts)
+    n = vectors.shape[0]
+    out = set()
+    for i in range(n):
+        for j in range(i):
+            if dec[i, j] >= theta:
+                out.add((j, i))
+    return out

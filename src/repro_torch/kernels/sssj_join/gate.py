@@ -34,6 +34,7 @@ __all__ = [
     "gate_workspace",
     "init_strip_summary",
     "refresh_strip_summary",
+    "strip_bound",
     "strip_gate",
     "summarize_strips",
 ]
@@ -227,6 +228,37 @@ def chunk_norms(x: torch.Tensor, chunk_d: int) -> torch.Tensor:
     return torch.sqrt((x.float() ** 2).reshape(n, d // chunk_d, chunk_d).sum(-1))
 
 
+def strip_bound(
+    qp: torch.Tensor,
+    summary: StripSummary,
+    *,
+    block_q: int,
+    chunk_d: int,
+    tq_lo,
+    tq_hi,
+    lam_min,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bound :func:`strip_gate` compares with θ, on ``qp``'s device:
+    ``(ub_tile · decay_ub (nq, ns), decay_ub (ns,))``, ``ub_tile`` from
+    :func:`gate_ub` and ``decay_ub`` the decay at each strip's nearest
+    time to the batch's ``[tq_lo, tq_hi]``."""
+    d_pad = qp.shape[1]
+    d_s = summary.vmax.shape[1]
+    vmax = summary.vmax.float()
+    if d_s < d_pad:
+        vmax = torch.nn.functional.pad(vmax, (0, d_pad - d_s))
+    qa = qp.float().abs()
+    qcn = chunk_norms(qp, chunk_d)
+    ub_tile = gate_ub(qa, qcn, vmax, summary.cnorm.float(), block_q=block_q)
+    tq_lo = torch.as_tensor(tq_lo, dtype=torch.float32, device=qp.device)
+    tq_hi = torch.as_tensor(tq_hi, dtype=torch.float32, device=qp.device)
+    dt_lb = torch.clamp(
+        torch.maximum(tq_lo - summary.tmax, summary.tmin - tq_hi), min=0.0
+    )
+    decay_ub = torch.exp(-lam_min * dt_lb)                # (ns,)
+    return ub_tile * decay_ub[None, :], decay_ub
+
+
 def strip_gate(
     qp: torch.Tensor,
     summary: StripSummary,
@@ -252,23 +284,11 @@ def strip_gate(
     dev = resolve_device(device)
     qp = torch.as_tensor(qp, device=dev)
     summary = StripSummary(*(torch.as_tensor(x, device=dev) for x in summary))
-    Qp, d_pad = qp.shape
-    nq = Qp // block_q
-    ns, d_s = summary.vmax.shape
-    vmax = summary.vmax.float()
-    if d_s < d_pad:
-        vmax = torch.nn.functional.pad(vmax, (0, d_pad - d_s))
-    qa = qp.float().abs()
-    qcn = chunk_norms(qp, chunk_d)
-    ub_tile = gate_ub(qa, qcn, vmax, summary.cnorm.float(), block_q=block_q)
-    tq_lo = torch.as_tensor(tq_lo, dtype=torch.float32, device=dev)
-    tq_hi = torch.as_tensor(tq_hi, dtype=torch.float32, device=dev)
-    dt_lb = torch.clamp(
-        torch.maximum(tq_lo - summary.tmax, summary.tmin - tq_hi), min=0.0
-    )
-    decay_ub = torch.exp(-lam_min * dt_lb)                # (ns,)
+    nq = qp.shape[0] // block_q
+    bound, decay_ub = strip_bound(qp, summary, block_q=block_q, chunk_d=chunk_d,
+                                  tq_lo=tq_lo, tq_hi=tq_hi, lam_min=lam_min)
     time_alive = (decay_ub >= th_min) & (summary.umax >= 0)
-    gate = time_alive[None, :] & (ub_tile * decay_ub[None, :] >= th_min)
+    gate = time_alive[None, :] & (bound >= th_min)
     skipped_time = nq * (~time_alive).sum()
     skipped_l2 = (time_alive[None, :] & ~gate).sum()
     survived = gate.any(0).sum()

@@ -110,6 +110,41 @@ def test_port_sources_found():
             "serve.py"} <= names
 
 
+_HOST_CORE = ("types", "counters", "similarity", "postings", "index_inv",
+              "index_l2", "minibatch", "streaming")
+
+
+def test_host_joiners_import_neither_jax_nor_repro():
+    """The paper's host joiners and the Table-1 stream generator, alone in
+    a fresh interpreter."""
+    mods = ", ".join(f"repro_torch.core.{m}" for m in _HOST_CORE)
+    code = (
+        "import sys\n"
+        f"import {mods}\n"
+        "import repro_torch.data.synth\n"
+        "from repro_torch.core import make_index, make_joiner, join_stream\n"
+        "from repro_torch.data import (StreamSpec, DATASET_SPECS,\n"
+        "    synthetic_stream, planted_duplicates)\n"
+        "items = synthetic_stream(StreamSpec('s', 40, 64, 6.0, 'bursty'), seed=1)\n"
+        "join_stream(make_joiner('STR', 'L2', 0.7, 0.1), items)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("name", _HOST_CORE)
+def test_host_joiner_module_exists(name):
+    path = os.path.join(_PORT, "core", f"{name}.py")
+    assert os.path.isfile(path), path
+    assert path in _port_sources()
+
+
 def _no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
