@@ -41,7 +41,7 @@ kernel timings, see ``main``):
       keep-masks against the same pipeline's whose filter runs
       ``join_impl="dense"`` (equal outside documents whose exact best
       score lies within ``BAND`` of θ);
-   e. ``MultiTenantRuntime`` at ``capacity=262144, d=1024`` with 64
+   e. ``MultiTenantRuntime`` at ``capacity=131072, d=1024`` with 64
       tenants (a non-uniform (θ, λ) table, quota eviction, tenants 0 and 6
       identical streams), each tenant's pairs, masks and overflow against
       a ``join_impl="dense"`` runtime, then the kernel route under
@@ -54,9 +54,11 @@ kernel timings, see ``main``):
       ``cand_big_kernel``), its groups against a dense-oracle runtime's
       and its snapshot's names against ``tests/metrics_schema.json``;
    h. ``ShardedStreamEngine``: four shards of 65,536 slots (phase 3's
-      window) on a single-process mesh over the visible cards, on phase
-      3's stream, its pairs and masks against phase 3's kernel route and
-      its rings' counts summed against the single ring's;
+      window) on a single-process mesh over the visible cards, on the
+      first ``SHARD_REQUESTS`` (20 of 80) requests of phase 3's stream,
+      its pairs and masks against the same prefix of phase 3's kernel
+      route, and its rings' counts summed against the prefix's (81,920
+      items: no ring wraps);
    i. the ring dense join (``make_distributed_join_step``) over the same
       four shards with a global batch of 512: 512 steps fill the rings,
       then 4 steps' window and self scores against ``use_ref`` and the
@@ -92,6 +94,23 @@ kernel timings, see ``main``):
       sets equal outside the ε-band, scores within ``FLOAT_TOL``,
       nothing dropped or overwritten, the host's ``Counters`` under
       ``paper/*`` in the engine's snapshot;
+   p. olmoe-1b-7b at full width (16 layers, d 2,048, 64 experts top-8,
+      random f32 weights drawn on the card after qwen3-0.6b's are freed):
+      ``launch.serve``'s token stream (32 requests of 128 x 64 tokens,
+      capacity dispatch) into ``SSSJService(theta=0.85, lam=0.05,
+      dim=2048, capacity=8192, block=128)``, its pairs, groups and trends
+      against the same service on ``join_impl="dense"`` fed the same
+      embeddings; layer 0's MoE on the card against a CPU run of the
+      port's ``moe`` on the same hidden states (expert indices and keep
+      masks equal outside counted near-ties, outputs within
+      ``MOE_RTOL``); planted copies found;
+   q. 8 olmoe documents of 2,048 tokens, so that all 16 layers run
+      ``flash_attn.cu`` at the MHA shape (H 16, Hkv 16); layer 0's flash
+      route against ``chunked_causal_attention`` on the card;
+   r. olmoe decode: caches of 4 x 512 primed by a dropless prefill of
+      448 tokens, then 64 ``lm_decode_step``s, each step's logits
+      against the cache-less dropless forward over the 512 tokens within
+      ``DECODE_RTOL`` of its largest logit, argmax equal where decided;
 5. flash attention through ``repro_torch.kernels.flash_attention`` at
    the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
    qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
@@ -106,7 +125,7 @@ kernel timings, see ``main``):
    ``device_ms``, the plain version's and the library call's beside) and
    bound of each kernel, the launches counted over the run of its own
    path (flash attention's: phase 4l's), and over each path of phases
-   3-4o (``launches_by_path``), after a line with the script's total
+   3-4r (``launches_by_path``), after a line with the script's total
    seconds;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -162,7 +181,14 @@ EDGE_CFGS = tuple(
 EDGE_ITEMS = 65536 + 16384
 
 
+T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``at_s``, the seconds since
+    this process started, the script's timeline."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.monotonic() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -184,7 +210,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-TRIES = 5   # device_ms's measurements before it gives up
+TRIES = 5   # device_ms's traces before it reads CUDA events instead
 
 
 def device_ms(fn, reps: int, kernel: str | None = None, warmup: int = 2,
@@ -208,7 +234,8 @@ def device_ms(fn, reps: int, kernel: str | None = None, warmup: int = 2,
     back-to-back flash launches in every try, and once all 20 of a
     0.03 ms kernel), so a named kernel's time is the mean over the
     launches the trace holds, and a kernel recorded fewer than ``reps /
-    2`` times is measured again, up to ``TRIES`` times."""
+    2`` times is measured again, up to ``TRIES`` times, and then read by
+    CUDA events (:func:`_queued_ms`), which the run reports."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -237,8 +264,41 @@ def device_ms(fn, reps: int, kernel: str | None = None, warmup: int = 2,
             if parts is not None:
                 parts.update(means)
             return sum(means.values())
-    raise AssertionError(f"device_ms: {[(e.key[:60], e.count) for e in events]} "
-                         f"device events for {reps} calls, {TRIES} times")
+    # the trace kept too little of the work, ``TRIES`` times over (on an
+    # H100 once every event of 10 SDPA calls, 5 tries in a row): CUDA
+    # events instead, the calls enqueued behind a sleep kernel, so that the
+    # host's launch pace counts only where ``fn`` waits on the device; the
+    # whole call, not a named kernel alone, and ``parts`` stays unset
+    ms = _queued_ms(fn, reps, warmup)
+    print(f"device_ms: the trace held {[(e.key[:60], e.count) for e in events]} "
+          f"for {reps} calls, {TRIES} times; CUDA events read {ms} ms",
+          file=sys.stderr, flush=True)
+    emit({"phase": "device_ms_fallback", "kernel": kernel, "reps": reps,
+          "traced": [(e.key[:60], e.count) for e in events], "ms": ms})
+    DEVICE_MS_FALLBACKS.append(ms)
+    return ms
+
+
+DEVICE_MS_FALLBACKS: list = []   # device_ms's readings by CUDA events
+SLEEP_CYCLES = 100_000_000       # about 50 ms of an H100's clock
+
+
+def _queued_ms(fn, reps: int, warmup: int) -> float:
+    """CUDA events around ``reps`` calls of ``fn`` that the host enqueues
+    while a sleep kernel holds the stream, over ``reps``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # a kernel's times in the ``kernels`` line: through its wrapper (``ms``,
@@ -1417,11 +1477,15 @@ def phase_dedup(dev, smi) -> dict:
 # --------------------------------------------------------------------- #
 # 64 tenants: θ cycles over (0.9, 0.95), λ over (1e-3, 2e-3, 4e-3), so the
 # table is not uniform and tenant 6 repeats tenant 0's (θ, λ); each tenant
-# streams at 1/64 of the main path's rate, so together they make its rate
+# streams at 1/64 of the main path's rate, so together they make its rate;
+# half the main path's window, and half the items a tenant, keep the four
+# host-paced runs of 4e in the script's time while each tenant's 2,048
+# slots still hold its ~1,650 items of horizon and its 2,560 items wrap them
 MT_TENANTS = 64
 MT_THETAS = tuple((0.9, 0.95)[k % 2] for k in range(MT_TENANTS))
 MT_LAMS = tuple((1e-3, 2e-3, 4e-3)[k % 3] for k in range(MT_TENANTS))
-MT_PER_TENANT = 5120
+MT_PER_TENANT = 2560
+MT_CAPACITY = CAPACITY // 2
 MT_TWIN = (0, 6)           # tenant 6 streams tenant 0's seed: identical items
 MT_SPAN = 4
 MT_FLUSH_ROWS = 512        # flush() every 512 admitted items
@@ -1452,10 +1516,13 @@ RING_WARM = CAPACITY // RING_BATCH
 RING_STEPS = 4
 SHARD_SVC_MICRO = 128
 SHARD_SVC_ITEMS = 32768
+# 4h runs the first 20 of phase 3's 80 requests (81,920 items): the
+# script's time (the LM phases of 4p-4r came in) cut its host-paced run
+SHARD_REQUESTS = 20
 
 
 def _mt_stream():
-    """Phase 4e's traffic: tenant k's ``dense_embedding_stream(5120, 1024,
+    """Phase 4e's traffic: tenant k's ``dense_embedding_stream(2560, 1024,
     seed=k, rate=1000/64)`` (tenant 6 with tenant 0's seed), merged by
     timestamp (ties by tenant).  Returns ``(vecs (n, d), ts (n,), tenant
     (n,))`` in merged order."""
@@ -1640,9 +1707,9 @@ def _runtime_rec(run) -> dict:
 
 
 def phase_runtime(dev, smi, stream, gen_s: float) -> dict:
-    """4e: ``MultiTenantRuntime`` at the main path's window and width with
-    64 tenants under quota eviction (each tenant's 4,096 slots hold its
-    ~1,650 items of horizon, and its own 5,120 items wrap its sub-ring),
+    """4e: ``MultiTenantRuntime`` at half the main path's window, its width,
+    with 64 tenants under quota eviction (each tenant's 2,048 slots hold
+    its ~1,650 items of horizon, and its own 2,560 items wrap its sub-ring),
     held against the same runtime on ``join_impl="dense"``; then the
     kernel route again under ``dead`` and ``oldest`` eviction, whose pairs
     must be the quota run's (nothing is overwritten)."""
@@ -1650,8 +1717,8 @@ def phase_runtime(dev, smi, stream, gen_s: float) -> dict:
 
     vecs, ts, tenant = stream
     submits = _submits(vecs, ts, tenant)
-    cfg = dict(theta=THETA, lam=LAM, capacity=CAPACITY, d=D, micro_batch=MICRO,
-               eviction="quota", quotas=quota_partition(CAPACITY, [1.0] * MT_TENANTS))
+    cfg = dict(theta=THETA, lam=LAM, capacity=MT_CAPACITY, d=D, micro_batch=MICRO,
+               eviction="quota", quotas=quota_partition(MT_CAPACITY, [1.0] * MT_TENANTS))
     kern, launches = _count_launches(
         lambda: _run_runtime(dev, _runtime(dev, cfg, MT_THETAS, MT_LAMS), submits))
     _expect_launches("runtime", launches, kern["micro_batches"])
@@ -1690,7 +1757,7 @@ def phase_runtime(dev, smi, stream, gen_s: float) -> dict:
     fill = _span_fill_cost(dev, _runtime(dev, cfg, MT_THETAS, MT_LAMS))
     rec = {"phase": "runtime", "nvidia_smi": smi, "n_items": len(vecs), "gen_s": gen_s,
            "span_fill_cost": fill,
-           "tenants": MT_TENANTS, "submits": len(submits), "capacity": CAPACITY, "d": D,
+           "tenants": MT_TENANTS, "submits": len(submits), "capacity": MT_CAPACITY, "d": D,
            "quota": cfg["quotas"][0], "launches": launches, **_runtime_rec(kern),
            "dense_items_per_s": dense["items_per_s"],
            "band_pairs": sum(map(len, chk["band"].values())),
@@ -1967,15 +2034,29 @@ def _peak_gib(dev):
     return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
 
 
+def _run_prefix(run, n_items: int) -> dict:
+    """An engine run's pairs and row masks over its first ``n_items``
+    items: the pairs whose newer item is one of them."""
+    ua, ub, sc = run["pairs"]
+    first = ua < n_items
+    return {"pairs": (ua[first], ub[first], sc[first]), "mask": run["mask"][:n_items]}
+
+
 def phase_sharded_engine(dev, smi, requests, kern_run) -> dict:
     """4h: ``ShardedStreamEngine`` with four shards of 65,536 slots (phase
-    3's global window) on phase 3's stream: its drained pairs, scores and
-    row masks must be phase 3's kernel route's (outside the ε-band), with
-    nothing dropped or overwritten, and the shards' cursors, live slots
-    and overflow must sum to the single ring's."""
+    3's global window) on the first ``SHARD_REQUESTS`` requests of phase
+    3's stream: its drained pairs, scores and row masks must be those of
+    phase 3's kernel route over the same items (outside the ε-band),
+    with nothing dropped or overwritten, and the shards' cursors, live
+    slots and overflow must sum to those of one ring that took the
+    prefix (no ring wraps: each of them the prefix's items, overflow 0)."""
     from repro_torch.engine import EngineConfig, ShardedStreamEngine
 
     t0 = time.monotonic()
+    requests = requests[:SHARD_REQUESTS]
+    n_items = sum(len(v) for v, _ in requests)
+    if n_items > CAPACITY:
+        raise ValueError("4h's prefix must not wrap phase 3's ring")
     mesh, placement = _shard_mesh(dev)
     cfg = EngineConfig(theta=THETA, lam=LAM, capacity=CAPACITY // SHARDS, d=D,
                        micro_batch=MICRO)
@@ -1987,22 +2068,24 @@ def phase_sharded_engine(dev, smi, requests, kern_run) -> dict:
     peak_gib = _peak_gib(dev)
     n_micro = _n_micro(requests, MICRO)
     _expect_launches("sharded engine", launches, n_micro, shards=SHARDS)
-    band, score_err = _check_same_emission(run, kern_run, "sharded engine vs main path")
+    band, score_err = _check_same_emission(run, _run_prefix(kern_run, n_items),
+                                           "sharded engine vs main path")
     st = run["stats"]
-    if st["pairs_dropped"] or st["window_overflow"] or st["n_items"] != N_ITEMS:
+    if st["pairs_dropped"] or st["window_overflow"] or st["n_items"] != n_items:
         raise AssertionError(f"sharded engine dropped or overflowed: {st}")
     sums = {k: sum(v) for k, v in run["rings"].items()}
-    if sums != {k: sum(v) for k, v in kern_run["rings"].items()}:
-        raise AssertionError(f"sharded rings {run['rings']} do not sum to the single "
-                             f"ring's {kern_run['rings']}")
+    if sums != {"cursor": n_items, "live_slots": n_items, "window_overflow": 0}:
+        raise AssertionError(f"sharded rings {run['rings']} do not sum to one ring's "
+                             f"after {n_items} items")
     n_prof = _n_micro(requests[-1:], MICRO)
     emit({"phase": "sharded_engine", "nvidia_smi": smi, "shards": SHARDS,
           "placement": placement, "shard_capacity": cfg.capacity, "d": D,
-          "n_items": N_ITEMS, "pairs": len(run["pairs"][0]), "band_pairs": len(band),
+          "requests": len(requests), "n_items": n_items,
+          "pairs": len(run["pairs"][0]), "band_pairs": len(band),
           "max_score_err": score_err, "launches": launches,
           "launches_per_micro_batch_kernels": {k: v / n_micro for k, v in launches.items()},
           "profiled_micro_batches": n_prof, "peak_gib": peak_gib,
-          "rings": run["rings"], "single_ring": kern_run["rings"],
+          "rings": run["rings"], "phase_3_ring_whole_stream": kern_run["rings"],
           "sharded": _route_times(run, n_prof),
           "main_path": _route_times(kern_run, _n_micro(requests[-2:], MICRO)),
           "shard_stats": {k: st[k] for k in ("n_shards", "pairs_dropped_global", "shards")},
@@ -2550,45 +2633,42 @@ def _expect_lm_launches(label, launches, n_micro, flash):
                              f"{launches['flash_attn']} times, expected {flash}")
 
 
-def lm_params(dev):
-    """qwen3-0.6b's parameters at full width, drawn on ``dev`` from a
-    seeded generator; returns ``(cfg, params, record)``."""
+def lm_params(dev, arch=LM_ARCH):
+    """``arch``'s parameters at full width, drawn on ``dev`` from a seeded
+    generator; returns ``(cfg, params, record)``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm, param_count
     from repro_torch.models.common import Initializer
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     t0 = time.monotonic()
     params = init_lm(Initializer(torch.Generator(dev).manual_seed(SEED), dev), cfg)
     sync(dev)
     n = param_count(cfg)
-    return cfg, params, {"arch": LM_ARCH, "params": n, "param_gib": 4 * n / 2**30,
+    return cfg, params, {"arch": arch, "params": n, "param_gib": 4 * n / 2**30,
                          "init_s": time.monotonic() - t0}
 
 
-def phase_lm_serve(dev, smi, cfg, params, rec0) -> dict:
-    """4k: the system end to end, ``launch.serve``'s token stream through
-    the port's ``LMEmbedder`` (qwen3-0.6b at full width) into
-    ``SSSJService(theta=0.85, lam=0.05, dim=1024, capacity=8192,
-    block=128)``, strict: each request's pairs against the same service
-    on ``join_impl="dense"`` fed the same embeddings (equal outside the
-    ε-band, scores within ``FLOAT_TOL``), its groups and trends against
-    those of the oracle's pairs; 4 documents re-embedded on the CPU with
-    the same parameters within ``EMBED_TOL`` (the check that the LM's f32
-    products ran in IEEE f32, not TF32).  The last two requests run under
-    the profiler (busy share); one forward of a request's 128 documents is
-    timed on the device."""
+def _lm_serve(dev, smi, cfg, params, rec0, serve, svc_cfg, label, phase) -> tuple:
+    """``launch.serve``'s token stream (``serve``) through the port's
+    ``LMEmbedder`` into ``SSSJService(**svc_cfg)``, strict: each request's
+    pairs against the same service on ``join_impl="dense"`` fed the same
+    embeddings (equal outside the ε-band, scores within ``FLOAT_TOL``),
+    its groups and trends against those of the oracle's pairs, the
+    embeddings finite unit vectors.  The last two requests run under the
+    profiler (busy share); one forward of a request's documents is timed
+    on the device.  Returns ``(record, launches, stream, embeddings by
+    request, emitted pairs)``."""
     import dataclasses
 
     import torch
     from repro_torch.engine import StreamEngine
     from repro_torch.launch.serve import token_requests
-    from repro_torch.models import params_from_numpy, params_to_numpy
     from repro_torch.serving import LMEmbedder, SSSJService, pooled_unit_embed
 
     t_phase = time.monotonic()
-    stream, planted = token_requests(cfg.vocab_size, **SERVE)
+    stream, planted = token_requests(cfg.vocab_size, **serve)
     emb = LMEmbedder(cfg, params, device=dev)
     recorded = []
 
@@ -2598,7 +2678,7 @@ def phase_lm_serve(dev, smi, cfg, params, rec0) -> dict:
         return out
 
     _reset_peak(dev)
-    svc = SSSJService(**SERVE_SVC, embed_fn=embed_fn, device=dev)
+    svc = SSSJService(**svc_cfg, embed_fn=embed_fn, device=dev)
     timed, profiled = stream[:-2], stream[-2:]
 
     def run():
@@ -2612,60 +2692,49 @@ def phase_lm_serve(dev, smi, cfg, params, rec0) -> dict:
 
     (pairs, seconds, prof), launches = _count_lm_launches(run)
     peak_gib = _peak_gib(dev)
-    n_micro = len(stream) * -(-SERVE["batch"] // SERVE_SVC["block"])
-    _expect_lm_launches("lm serve", launches, n_micro, flash=0)
+    n_micro = len(stream) * -(-serve["batch"] // svc_cfg["block"])
+    _expect_lm_launches(label, launches, n_micro, flash=0)
 
     # the oracle: the same service on the dense join, fed the same vectors
     replay = iter(recorded)
-    oracle = SSSJService(**SERVE_SVC, embed_fn=lambda toks: next(replay), device=dev)
+    oracle = SSSJService(**svc_cfg, embed_fn=lambda toks: next(replay), device=dev)
     oracle.engine.close()
     oracle.engine = StreamEngine(dataclasses.replace(oracle.engine.cfg, join_impl="dense"),
                                  device=dev)
     want = [oracle.submit(t, ts) for t, ts in stream]
     flat, flat_want = ([p for req in x for p in req] for x in (pairs, want))
     got_run, want_run = _pairs_run(flat), _pairs_run(flat_want)
-    band, score_err = _check_same_emission(got_run, want_run, "lm serve vs dense",
-                                           theta=SERVE_SVC["theta"])
+    band, score_err = _check_same_emission(got_run, want_run, f"{label} vs dense",
+                                           theta=svc_cfg["theta"])
     got_keys = set(zip(*(x.tolist() for x in got_run["pairs"][:2])))
     want_pairs = [(a, b) for a, b in zip(*(x.tolist() for x in want_run["pairs"][:2]))
                   if (a, b) not in band] + sorted(k for k in band if k in got_keys)
     groups, want_groups = svc.duplicate_groups(), _groups(want_pairs)
     if groups != want_groups:
-        raise AssertionError("lm serve: duplicate_groups differ from the oracle's")
+        raise AssertionError(f"{label}: duplicate_groups differ from the oracle's")
     trends = svc.trending(3)
     if trends != [g for g in want_groups if len(g) >= 3]:
-        raise AssertionError("lm serve: trends differ from the oracle's")
+        raise AssertionError(f"{label}: trends differ from the oracle's")
     n_docs = sum(len(t) for t, _ in stream)
     st = svc.engine.stats()
-    if (svc.stats.n_items != n_docs or n_docs <= SERVE_SVC["capacity"] or not flat
-            or st["pairs_dropped"]):
-        raise AssertionError(f"lm serve: the window did not wrap, nothing emitted or "
-                             f"pairs dropped: {svc.stats}")
+    if svc.stats.n_items != n_docs or not flat or st["pairs_dropped"]:
+        raise AssertionError(f"{label}: nothing emitted or pairs dropped: {svc.stats}")
     embs = np.concatenate(recorded)
     norms = np.linalg.norm(embs, axis=1)
     if not (np.isfinite(embs).all() and np.abs(norms - 1.0).max() <= EMBED_TOL):
-        raise AssertionError(f"lm serve: embeddings not finite unit vectors "
+        raise AssertionError(f"{label}: embeddings not finite unit vectors "
                              f"(norms {norms.min()}..{norms.max()})")
-
-    # the same parameters on the CPU: IEEE f32 there, so TF32 on the card shows
-    params_cpu = params_from_numpy(params_to_numpy(params), "cpu")
-    cpu = LMEmbedder(cfg, params_cpu, device="cpu")(stream[0][0][:SERVE_CPU_DOCS])
-    del params_cpu
-    cpu_err = float(np.abs(cpu - recorded[0][:SERVE_CPU_DOCS]).max())
-    if not cpu_err <= EMBED_TOL:
-        raise AssertionError(f"lm serve: card and CPU embeddings differ by {cpu_err}")
 
     toks = torch.from_numpy(stream[0][0]).to(dev)
     forward = lambda: pooled_unit_embed(params, cfg, toks)   # noqa: E731
     fwd_ms = cuda_ms(forward, 3, warmup=1)
     fwd_device_ms = device_ms(forward, 3, warmup=1)
-    tokens_per_doc = SERVE["seq"]
     n_timed = sum(len(t) for t, _ in timed)
-    rec = {"phase": "lm_serve", "nvidia_smi": smi, **rec0, "config": SERVE_SVC,
-           "stream": SERVE, "documents": n_docs, "planted": planted,
+    rec = {"phase": phase, "nvidia_smi": smi, **rec0, "config": svc_cfg,
+           "stream": serve, "documents": n_docs, "planted": planted,
            "timed_documents": n_timed, "seconds": seconds,
            "documents_per_s": n_timed / seconds,
-           "tokens_per_s": n_timed * tokens_per_doc / seconds,
+           "tokens_per_s": n_timed * serve["seq"] / seconds,
            "forward_ms": fwd_ms, "forward_device_ms": fwd_device_ms,
            "forward_documents": len(stream[0][0]),
            "device_busy_share": prof["device_busy_share"],
@@ -2673,24 +2742,55 @@ def phase_lm_serve(dev, smi, cfg, params, rec0) -> dict:
            "pairs": len(flat), "dense_pairs": len(flat_want), "band_pairs": len(band),
            "max_score_err": score_err, "groups": len(groups),
            "largest_group": max(map(len, groups)) if groups else 0,
-           "trending_3": len(trends), "cpu_embed_max_abs_err": cpu_err,
+           "trending_3": len(trends),
            "norm_err": float(np.abs(norms - 1.0).max()), "peak_gib": peak_gib,
            "stats": st, "service_stats": dataclasses.asdict(svc.stats),
-           "phase_s": time.monotonic() - t_phase, "profile": prof}
-    for s in (svc, oracle):
-        s.engine.close()
+           "profile": prof, "t_phase": t_phase}
+    for x in (svc, oracle):
+        x.engine.close()
+    return rec, launches, stream, recorded, flat
+
+
+def _emit_phase(rec: dict) -> None:
+    rec["phase_s"] = time.monotonic() - rec.pop("t_phase")
     emit(rec)
+
+
+def phase_lm_serve(dev, smi, cfg, params, rec0) -> dict:
+    """4k: the system end to end (:func:`_lm_serve`), qwen3-0.6b at full
+    width into ``SSSJService(theta=0.85, lam=0.05, dim=1024,
+    capacity=8192, block=128)``; the 12,288 documents wrap the window; 4
+    documents re-embedded on the CPU with the same parameters within
+    ``EMBED_TOL`` (the check that the LM's f32 products ran in IEEE f32,
+    not TF32)."""
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.serving import LMEmbedder
+
+    rec, launches, stream, recorded, _ = _lm_serve(dev, smi, cfg, params, rec0, SERVE,
+                                                   SERVE_SVC, "lm serve", "lm_serve")
+    if rec["documents"] <= SERVE_SVC["capacity"]:
+        raise AssertionError("lm serve: the window did not wrap")
+    # the same parameters on the CPU: IEEE f32 there, so TF32 on the card shows
+    params_cpu = params_from_numpy(params_to_numpy(params), "cpu")
+    cpu = LMEmbedder(cfg, params_cpu, device="cpu")(stream[0][0][:SERVE_CPU_DOCS])
+    del params_cpu
+    cpu_err = float(np.abs(cpu - recorded[0][:SERVE_CPU_DOCS]).max())
+    if not cpu_err <= EMBED_TOL:
+        raise AssertionError(f"lm serve: card and CPU embeddings differ by {cpu_err}")
+    rec["cpu_embed_max_abs_err"] = cpu_err
+    _emit_phase(rec)
     return launches
 
 
-def phase_lm_long(dev, smi, cfg, params) -> tuple:
-    """4l: 8 documents of 2,048 tokens through ``pooled_unit_embed``, so
-    that every one of the 28 layers' attention runs ``flash_attn.cu``
-    (positions ``arange(S)``, S above 1,024): one flash launch a layer,
-    finite unit embeddings; on layer 0's real q, k and v the flash route
-    against the port's ``chunked_causal_attention`` on the card within
-    ``FLASH_F32_TOL``; flash timed at this shape (B 8, H 16, Hkv 8, S
-    2,048, Dh 128) beside its plain version and SDPA, and the whole
+def phase_lm_long(dev, smi, cfg, params, phase="lm_long") -> tuple:
+    """4l (qwen3-0.6b) and 4q (olmoe-1b-7b): 8 documents of 2,048 tokens
+    through ``pooled_unit_embed``, so that every layer's attention runs
+    ``flash_attn.cu`` (positions ``arange(S)``, S above 1,024): one flash
+    launch a layer (28; 16), finite unit embeddings; on layer 0's real
+    q, k and v the flash route against the port's
+    ``chunked_causal_attention`` on the card within ``FLASH_F32_TOL``;
+    flash timed at this shape (B 8, H 16, S 2,048, Dh 128; Hkv 8, or 16
+    for olmoe's MHA) beside its plain version and SDPA, and the whole
     forward on the device.  Returns ``(launches, flash record)``."""
     import torch
     from repro_torch._device import ieee_f32
@@ -2715,11 +2815,11 @@ def phase_lm_long(dev, smi, cfg, params) -> tuple:
 
     (out, seconds), launches = _count_lm_launches(run)
     peak_gib = _peak_gib(dev)
-    _expect_lm_launches("lm long documents", launches, 0, flash=cfg.n_layers)
+    _expect_lm_launches(phase, launches, 0, flash=cfg.n_layers)
     norms = torch.linalg.vector_norm(out, dim=1)
     if not (bool(torch.isfinite(out).all())
             and float((norms - 1.0).abs().max()) <= EMBED_TOL):
-        raise AssertionError("lm long documents: embeddings not finite unit vectors")
+        raise AssertionError(f"{phase}: embeddings not finite unit vectors")
 
     # layer 0's q, k, v: the flash route against the chunked online softmax
     p0 = _layer(params["groups"][0]["stacked"], 0)
@@ -2735,7 +2835,7 @@ def phase_lm_long(dev, smi, cfg, params) -> tuple:
         chunked = chunked_causal_attention(q, k, v, pos, pos[0], hd ** -0.5)
     err = float((flash_out - chunked).abs().max())
     if not err <= FLASH_F32_TOL:
-        raise AssertionError(f"lm long documents: flash vs chunked attention {err}")
+        raise AssertionError(f"{phase}: flash vs chunked attention {err}")
 
     flash_call = lambda: flash_attention(qf, kf, vf, device=dev, **kw)   # noqa: E731
     plain_call = lambda: flash_attention_plain(qf, kf, vf, block_q=128,  # noqa: E731
@@ -2758,7 +2858,7 @@ def phase_lm_long(dev, smi, cfg, params) -> tuple:
     flash_rec["bound_ms"], flash_rec["bound_by"] = bound_ms(nbytes, flops)
     flash_rec["bound_3xtf32_ms"] = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)[0]
     forward = lambda: pooled_unit_embed(params, cfg, toks)   # noqa: E731
-    rec = {"phase": "lm_long", "nvidia_smi": smi, "documents": LONG_DOCS,
+    rec = {"phase": phase, "arch": cfg.name, "nvidia_smi": smi, "documents": LONG_DOCS,
            "tokens": LONG_SEQ, "launches": launches, "seconds": seconds,
            "tokens_per_s": LONG_DOCS * LONG_SEQ / seconds,
            "forward_ms": cuda_ms(forward, 2, warmup=1),
@@ -2865,6 +2965,219 @@ def phase_lm_fused(dev, smi, cfg, params) -> dict:
     for s in (svc_f, svc_h):
         s.runtime.close()
     emit(rec)
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# phases 4p-4r: the MoE block kind and decode
+# --------------------------------------------------------------------- #
+# olmoe-1b-7b at its full width (src/repro_torch/configs/olmoe_1b_7b.py: 16
+# layers, d_model 2048, 16 heads = 16 kv heads, head_dim 128, 64 experts
+# top-8 of width 1,024, softmax router, vocabulary 50,304, qk_norm), random
+# f32 weights drawn on the card from SEED: 6,919,100,416 parameters, 25.8 GiB
+MOE_ARCH = "olmoe-1b-7b"
+# 4p: 32 requests of 128 documents x 64 tokens: 8,192 tokens a forward in
+# 16 dispatch groups of 512 tokens, 80 slots an expert a group (1,280 an
+# expert), 25 % planted near-duplicates
+MOE_SERVE = dict(requests=32, batch=128, seq=64, dup_frac=0.25, seed=SEED)
+MOE_SVC = dict(theta=0.85, lam=0.05, dim=2048, capacity=8192, block=128)
+NEAR_TIE = 1e-6     # router probabilities this close may rank differently
+MOE_RTOL = 1e-5     # layer 0's MoE output, card against CPU, of its largest |y|
+                    # (f32 against f64 at this width: ~1e-6 of it)
+# 4r: caches of 4 x 512 primed by a 448-token prefill, then 64 decode steps;
+# logits against the full dropless forward within DECODE_RTOL of its
+# largest logit (f32 sums in another order through 16 layers)
+DECODE = dict(batch=4, max_len=512, prefill=448, steps=64)
+DECODE_RTOL = 1e-4
+
+
+def _planted_sources(stream, recent: int = 256) -> list:
+    """The planted copies of a ``token_requests`` stream and their
+    sources as document indices (the service's uids): for each document,
+    the one among the ``recent`` before its request that shares most of
+    its tokens, where that share is above half (a copy keeps ~95 %; two
+    drawn documents share next to none)."""
+    docs = np.concatenate([t for t, _ in stream])
+    B = len(stream[0][0])
+    out = []
+    for r in range(1, len(stream)):
+        lo = max(0, r * B - recent)
+        same = (docs[r * B:(r + 1) * B, None] == docs[None, lo:r * B]).mean(-1)
+        for i in np.nonzero(same.max(1) > 0.5)[0]:
+            out.append((r * B + int(i), lo + int(same[i].argmax())))
+    return out
+
+
+def _moe_layer_check(dev, cfg, params, toks) -> dict:
+    """Layer 0's MoE on the card against a CPU run of the port's ``moe``
+    (IEEE f32 on both) on the same hidden states: those of one request's
+    documents, the whole capacity dispatch.  Expert indices must be equal
+    but for tokens whose router probabilities tie within ``NEAR_TIE``
+    (the K-th against the (K+1)-th, or two within the top K: counted and
+    reported); a token whose expert *set* differs moves the queue
+    positions of its dispatch group, so such groups are counted and left
+    out of the keep-mask and output comparisons.  Keep masks equal;
+    outputs within ``MOE_RTOL`` of the largest |y|."""
+    import torch
+    from repro_torch._device import ieee_f32
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.models.attention import attention
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.lm import _layer
+    from repro_torch.models.moe import _dispatch, _route, moe
+
+    mc, D = cfg.moe, cfg.d_model
+    p0 = _layer(params["groups"][0]["stacked"], 0)
+    tt = torch.from_numpy(toks).to(dev)
+    B, S = tt.shape
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+
+    def run(p, h):
+        _, idx, probs = _route(mc, h.reshape(-1, D) @ p["router"])
+        G, _, keep, _, _ = _dispatch(mc, idx, False)
+        y, aux = moe(p, cfg, h)
+        return y.reshape(-1, D), aux, idx, keep.view(idx.shape), probs, G
+
+    with ieee_f32(dev):
+        x = torch.nn.functional.embedding(tt.long(), params["embed"])
+        a, _ = attention(p0["attn"], cfg, rms_norm(p0["norm1"], x, cfg.norm_eps), pos,
+                         positions_are_arange=True)
+        h = rms_norm(p0["norm2"], x + a, cfg.norm_eps)
+        card = run(p0["moe"], h)
+    y, aux, idx, keep, probs = (t.cpu() for t in card[:5])
+    G = card[5]
+    t0 = time.monotonic()
+    y_c, aux_c, idx_c, keep_c, _, _ = run(params_from_numpy(params_to_numpy(p0["moe"]), "cpu"),
+                                          h.cpu())
+    cpu_s = time.monotonic() - t0
+
+    K = mc.top_k
+    top = probs.sort(-1, descending=True).values[:, :K + 1]
+    near_k = (top[:, K - 1] - top[:, K]) <= NEAR_TIE
+    near_order = ((top[:, :K - 1] - top[:, 1:K]) <= NEAR_TIE).any(1)
+    differ = (idx != idx_c).any(1)
+    if bool((differ & ~(near_k | near_order)).any()):
+        raise AssertionError("moe layer 0: expert indices differ on the card and the CPU "
+                             "away from any near-tie")
+    set_flip = (idx.sort(1).values != idx_c.sort(1).values).any(1)
+    T = idx.shape[0]
+    excluded = set_flip.view(G, T // G).any(1)
+    ok = ~excluded.repeat_interleave(T // G)
+    if bool((keep != keep_c)[ok].any()):
+        raise AssertionError("moe layer 0: keep masks differ on the card and the CPU")
+    scale = float(y_c.abs().max())
+    err = float((y - y_c)[ok].abs().max())
+    if not err <= MOE_RTOL * scale:
+        raise AssertionError(f"moe layer 0: outputs differ by {err} (largest |y| {scale})")
+    return {"tokens": T, "dispatch_groups": G, "near_ties_kth": int(near_k.sum()),
+            "near_ties_within_top_k": int(near_order.sum()),
+            "indices_differ": int(differ.sum()), "expert_sets_differ": int(set_flip.sum()),
+            "groups_excluded": int(excluded.sum()), "slots": keep.numel(),
+            "slots_dropped": int((~keep).sum()),
+            "tokens_all_dropped": int((~keep.any(1)).sum()),
+            "max_abs_err": err, "max_abs_y": scale, "rtol": MOE_RTOL,
+            "aux_card": float(aux), "aux_cpu": float(aux_c), "cpu_s": cpu_s}
+
+
+def phase_moe_serve(dev, smi, cfg, params, rec0) -> dict:
+    """4p: the system end to end (:func:`_lm_serve`) at olmoe-1b-7b's full
+    width, capacity dispatch, into ``SSSJService(theta=0.85, lam=0.05,
+    dim=2048, capacity=8192, block=128)``; layer 0's MoE on the card
+    against the CPU (:func:`_moe_layer_check`); planted copies found: a
+    copy and its source emitted as a pair (capacity drops can move a
+    copy's embedding away from its source's)."""
+    rec, launches, stream, _, flat = _lm_serve(dev, smi, cfg, params, rec0, MOE_SERVE,
+                                               MOE_SVC, "moe serve", "moe_serve")
+    rec["moe_layer0"] = _moe_layer_check(dev, cfg, params, stream[0][0])
+    copies = _planted_sources(stream)
+    emitted = {(a, b) for a, b, _ in flat}
+    rec.update(planted_detected=len(copies),
+               planted_found=sum(pair in emitted for pair in copies))
+    _emit_phase(rec)
+    return launches
+
+
+def phase_moe_decode(dev, smi, cfg, params) -> dict:
+    """4r: ``init_lm_caches(cfg, 4, 512, f32)`` primed by a dropless
+    ``lm_forward(caches=)`` over 448 tokens, then 64 ``lm_decode_step``s,
+    teacher-forced: the prefill's and each step's logits against the
+    cache-less ``lm_forward(moe_dropless=True)`` over all 512 tokens at
+    the same positions, within ``DECODE_RTOL`` of its largest |logit|;
+    the argmax token equal wherever the full forward's top two logits
+    differ by more than that.  Each decode step but the last two is
+    timed alone (host clock ending in a sync), the last two run under
+    the profiler (busy share, device time by kernel); no kernel of the
+    port runs on this path."""
+    import torch
+    from repro_torch.models import init_lm_caches, lm_decode_step, lm_forward
+
+    t_phase = time.monotonic()
+    B, M, P, n = (DECODE[k] for k in ("batch", "max_len", "prefill", "steps"))
+    rng = np.random.default_rng(SEED + 6)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P + n))
+                            .astype(np.int32)).to(dev)
+    f32 = dict(compute_dtype=torch.float32)
+    _reset_peak(dev)
+
+    def run():
+        sync(dev)
+        t0 = time.monotonic()
+        caches = init_lm_caches(cfg, B, M, torch.float32, device=dev)
+        pre, _, caches = lm_forward(params, cfg, tokens=toks[:, :P], caches=caches,
+                                    cache_len=0, moe_dropless=True, **f32)
+        sync(dev)
+        prefill_s = time.monotonic() - t0
+        steps, step_s = [], []
+
+        def step(pos):
+            nonlocal caches
+            logits, caches = lm_decode_step(params, cfg, toks[:, pos:pos + 1], caches, pos,
+                                            **f32)
+            steps.append(logits[:, 0])
+
+        for pos in range(P, P + n - 2):
+            t0 = time.monotonic()
+            step(pos)
+            sync(dev)
+            step_s.append(time.monotonic() - t0)
+        _, prof = _profile(lambda: [step(pos) for pos in range(P + n - 2, P + n)], dev)
+        return pre, torch.stack(steps, 1), prefill_s, step_s, prof
+
+    (pre, dec, prefill_s, step_s, prof), launches = _count_lm_launches(run)
+    peak_gib = _peak_gib(dev)
+    _expect_lm_launches("moe decode", launches, 0, flash=0)
+    sync(dev)
+    t0 = time.monotonic()
+    full, _, _ = lm_forward(params, cfg, tokens=toks, moe_dropless=True, **f32)
+    sync(dev)
+    full_s = time.monotonic() - t0
+    if not (bool(torch.isfinite(dec).all()) and bool(torch.isfinite(pre).all())):
+        raise AssertionError("moe decode: logits not finite")
+    tol = DECODE_RTOL * float(full.abs().max())
+    want = full[:, P:]
+    err = float((dec - want).abs().max())
+    err_prefill = float((pre - full[:, :P]).abs().max())
+    if not (err <= tol and err_prefill <= tol):
+        raise AssertionError(f"moe decode: logits differ from the full forward by {err} "
+                             f"(prefill {err_prefill}), tolerance {tol}")
+    top2 = want.topk(2, -1).values
+    decided = (top2[..., 0] - top2[..., 1]) > tol
+    same = dec.argmax(-1) == want.argmax(-1)
+    if not bool(same[decided].all()):
+        raise AssertionError("moe decode: the argmax token differs where the top two "
+                             "logits are apart")
+    emit({"phase": "moe_decode", "nvidia_smi": smi, "arch": cfg.name, **DECODE,
+          "cache_gib": 2 * cfg.n_layers * B * M * cfg.n_kv_heads
+          * cfg.resolved_head_dim * 4 / 2**30,
+          "launches": launches, "prefill_s": prefill_s,
+          "decode_ms_median": 1e3 * float(np.median(step_s)),
+          "decode_ms_first": 1e3 * step_s[0], "decode_ms_max": 1e3 * max(step_s),
+          "tokens_per_s": B * len(step_s) / sum(step_s), "full_forward_s": full_s,
+          "profiled_steps": 2, "device_busy_share": prof["device_busy_share"],
+          "max_abs_err": err, "max_abs_err_prefill": err_prefill, "tol": tol,
+          "rtol": DECODE_RTOL, "max_abs_logit": float(full.abs().max()),
+          "argmax_decided": int(decided.sum()), "argmax_positions": decided.numel(),
+          "peak_gib": peak_gib, "phase_s": time.monotonic() - t_phase, "profile": prof})
     return launches
 
 
@@ -3124,6 +3437,13 @@ def main() -> int:
         by_path["lm_serve"] = phase_lm_serve(dev, smi, cfg, params, lm_rec)
         by_path["lm_long"], lm_flash = phase_lm_long(dev, smi, cfg, params)
         by_path["lm_fused"] = phase_lm_fused(dev, smi, cfg, params)
+        del params                   # olmoe-1b-7b's 25.8 GiB come next
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, params, moe_rec = lm_params(dev, MOE_ARCH)
+        by_path["moe_serve"] = phase_moe_serve(dev, smi, cfg, params, moe_rec)
+        by_path["moe_long"], moe_flash = phase_lm_long(dev, smi, cfg, params, "moe_long")
+        by_path["moe_decode"] = phase_moe_decode(dev, smi, cfg, params)
         lm_s = time.monotonic() - t_lm
         del params
         gc.collect()
@@ -3162,11 +3482,11 @@ def main() -> int:
                  "launches_by_path": {
                      **{path: counts.get("flash_attn", 0) for path, counts in by_path.items()},
                      "flash_phase": flash["launches"]},
-                 "lm_long_documents": lm_flash,
+                 "lm_long_documents": lm_flash, "moe_long_documents": moe_flash,
                  "ptxas_bf16": device["ptxas_flash_bf16"],
                  "ptxas_f32_3xtf32": device["ptxas_flash_tf32"]})
     emit({"phase": "total", "seconds": time.monotonic() - t_start,
-          "lm_phases_seconds": lm_s})
+          "lm_phases_seconds": lm_s, "device_ms_fallbacks": len(DEVICE_MS_FALLBACKS)})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,18 @@
 """The serving entry point: the system end to end.
 
 Counterpart of ``repro.launch.serve``.  Batched requests (token
-sequences) → LM embedding (any dense-attention ``--arch``, at its
-``reduced()`` size, random weights drawn from ``seed``) → streaming
-similarity self-join → near-duplicate groups and trend events, printed
-as they are detected.  Runs on CUDA unless given ``--device cpu``.
+sequences) → LM embedding (a dense-attention or MoE ``--arch``, at its
+``reduced()`` size, random weights drawn from ``seed``; MoE blocks run
+the reference's capacity dispatch, so a document's embedding depends on
+its batch) → streaming similarity self-join → near-duplicate groups and
+trend events, printed as they are detected.  Runs on CUDA unless given
+``--device cpu``.
 
 Example (CPU, seconds):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch qwen3-0.6b --requests 32 --batch 16 --theta 0.85 --lam 0.05
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch olmoe-1b-7b
 """
 
 from __future__ import annotations

@@ -11,7 +11,9 @@ each micro-batch inside the step.  The reference traces one function
 into both programs and gets bit-identical embeddings; here the two run
 the same code on batches of different sizes, whose products the card may
 order differently, so the two agree to a tolerance that the callers
-measure.
+measure.  MoE archs run the reference's capacity dispatch (no
+``moe_dropless``, as in the reference), so a document's embedding also
+depends on the other documents of its batch, through the drops.
 """
 
 from __future__ import annotations

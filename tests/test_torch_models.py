@@ -14,8 +14,10 @@ Above 1,024 tokens the reference's attention runs
 ``chunked_causal_attention``; the port runs the flash kernel's plain
 version there (positions ``arange(S)``) and its own
 ``chunked_causal_attention`` for explicit positions: both are held to
-the reference's function.  The MoE, MLA, hybrid and xLSTM archs raise
-``NotImplementedError`` naming ROADMAP item 9b.
+the reference's function.  The MLA, hybrid and xLSTM archs raise
+``NotImplementedError`` naming ROADMAP item 9b; the MoE block kind and
+the decode path are held in ``tests/test_torch_moe.py`` and
+``tests/test_torch_decode.py``.
 """
 
 import dataclasses
@@ -36,6 +38,8 @@ from repro_torch import configs as tconfigs
 from repro_torch.kernels.flash_attention import kernel as tflash
 from repro_torch.models import (
     init_lm,
+    init_lm_caches,
+    lm_decode_step,
     lm_forward,
     make_plan,
     param_count,
@@ -57,7 +61,7 @@ ATOL = 1e-5
 FLASH_ATOL = 2e-5
 DENSE_ARCHS = ("qwen3-0.6b", "qwen2.5-3b", "codeqwen1.5-7b", "deepseek-coder-33b",
                "chameleon-34b", "musicgen-medium")
-OTHER_ARCHS = ("olmoe-1b-7b", "deepseek-v3-671b", "zamba2-2.7b", "xlstm-350m")
+OTHER_ARCHS = ("deepseek-v3-671b", "zamba2-2.7b", "xlstm-350m")
 
 
 def _cfgs(arch):
@@ -219,14 +223,6 @@ def test_chunked_causal_attention_matches(S, qc):
     _close(got, want)
 
 
-def test_attention_refuses_a_cache():
-    _, tcfg, _, tp = _attn_params("qwen3-0.6b")
-    x = torch.zeros((1, 4, 64))
-    with pytest.raises(NotImplementedError, match="9b"):
-        tattn.attention(tp, tcfg, x, torch.zeros((1, 4), dtype=torch.int32),
-                        cache=object())
-
-
 # --------------------------------------------------------------------- #
 # the whole forward pass
 # --------------------------------------------------------------------- #
@@ -324,3 +320,7 @@ def test_other_block_kinds_raise(arch):
         lm_forward({}, tcfg, tokens=torch.ones((1, 4), dtype=torch.int64))
     with pytest.raises(NotImplementedError, match="9b"):
         param_count(tcfg)
+    with pytest.raises(NotImplementedError, match="9b"):
+        init_lm_caches(tcfg, 1, 8, device=CPU)
+    with pytest.raises(NotImplementedError, match="9b"):
+        lm_decode_step({}, tcfg, torch.ones((1, 1), dtype=torch.int64), [], 0)
