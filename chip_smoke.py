@@ -32,8 +32,9 @@ kernel timings, see ``main``):
    a. the scan route, ``join_impl="scan"`` (the gate kernel, then batched
       products over the strips its walk visits), also against the kernel
       route's gate counters, timed beside both routes;
-   b. ``SSSJService(block=64)`` in strict mode (``tile_k`` 4,096) in
-      requests of 4,096: pairs, duplicate groups, snapshot and
+   b. ``SSSJService(block=64)`` in strict mode (``tile_k`` 4,096) on the
+      first 66 requests of 4,096 (the ring wraps): pairs, duplicate
+      groups, snapshot and
       Prometheus text; its candidate buffers' bytes and merge time;
    c. ``BlockedStreamJoiner`` at 128 x 128 tiles (``tile_k`` 16,384);
    d. ``TokenPipeline`` with ``DedupFilter(dim=1024, capacity=65536,
@@ -68,7 +69,7 @@ kernel timings, see ``main``):
       a dense-oracle runtime on the mesh and the single-device service;
    k. the system end to end at qwen3-0.6b's full width (28 layers, d
       1,024, random f32 weights drawn on the card): ``launch.serve``'s
-      token stream (96 requests of 128 documents x 64 tokens) through the
+      token stream (72 requests of 128 documents x 64 tokens) through the
       port's ``LMEmbedder`` into ``SSSJService(theta=0.85, lam=0.05,
       dim=1024, capacity=8192, block=128)``, its pairs, groups and trends
       against the same service on ``join_impl="dense"`` fed the same
@@ -77,7 +78,7 @@ kernel timings, see ``main``):
       attention runs ``flash_attn.cu``; layer 0's flash route against
       ``chunked_causal_attention`` on the card;
    m. ``MultiTenantSSSJService(fused=FusedEmbedder(...))`` over 8
-      tenants and 2,048 documents against the same service fed host
+      tenants and 1,024 documents against the same service fed host
       embeddings;
    n. the gate's bits held exactly: ``topic_drift_stream`` (32,768
       items, d 1,024) into ``StreamEngine(theta=0.9, lam=1e-3,
@@ -96,7 +97,7 @@ kernel timings, see ``main``):
       ``paper/*`` in the engine's snapshot;
    p. olmoe-1b-7b at full width (16 layers, d 2,048, 64 experts top-8,
       random f32 weights drawn on the card after qwen3-0.6b's are freed):
-      ``launch.serve``'s token stream (32 requests of 128 x 64 tokens,
+      ``launch.serve``'s token stream (24 requests of 128 x 64 tokens,
       capacity dispatch) into ``SSSJService(theta=0.85, lam=0.05,
       dim=2048, capacity=8192, block=128)``, its pairs, groups and trends
       against the same service on ``join_impl="dense"`` fed the same
@@ -111,6 +112,18 @@ kernel timings, see ``main``):
       448 tokens, then 64 ``lm_decode_step``s, each step's logits
       against the cache-less dropless forward over the 512 tokens within
       ``DECODE_RTOL`` of its largest logit, argmax equal where decided;
+   s. xlstm-350m at full width (24 layers: 3 units of 7 mLSTM blocks and
+      an sLSTM block, d 1,024, 4 heads, random f32 weights drawn on the
+      card after olmoe's are freed): 4k's serve path and checks on 32
+      requests of 128 x 64 tokens, planted copies found, device launches
+      a forward and an sLSTM step;
+   t. 8 xlstm documents of 2,048 tokens (mLSTM chunks of 256, 2,048 sLSTM
+      host steps a block); layer 0's mLSTM block and unit 0's sLSTM block
+      on the card against the CPU, and the mLSTM block fed 256 tokens one
+      at a time through its cache against its chunk form, within
+      ``XLSTM_RTOL`` of the largest |value|;
+   u. xlstm decode: 4r's protocol on the recurrent caches (prefill chunks
+      of 64, the full forward's of 256, a step one token);
 5. flash attention through ``repro_torch.kernels.flash_attention`` at
    the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
    qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
@@ -125,7 +138,7 @@ kernel timings, see ``main``):
    ``device_ms``, the plain version's and the library call's beside) and
    bound of each kernel, the launches counted over the run of its own
    path (flash attention's: phase 4l's), and over each path of phases
-   3-4r (``launches_by_path``), after a line with the script's total
+   3-4u (``launches_by_path``), after a line with the script's total
    seconds;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1059,6 +1072,9 @@ def phase_dense_path(dev, requests, main_runs, smi) -> dict:
 PRUNE_KEYS = ("tiles_skipped_time", "tiles_skipped_l2", "strips_survived")
 # the consumers' tile edge: SSSJService(block=64) and DedupFilter(block=64)
 CONSUMER_BLOCK = 64
+# 4b's requests: the first 66 of phase 3's 80 (270,336 items; 64 fill the
+# 262,144 slots, so the ring still wraps; not 80: the script's time)
+SERVICE_REQUESTS = 66
 # TokenPipeline at qwen3's vocabulary, a batch of 256 documents of 2,048
 # tokens, 15 % planted near-duplicates of the step before
 PIPELINE = dict(vocab_size=151936, batch=256, seq_len=2048, dup_frac=0.15)
@@ -1204,9 +1220,10 @@ def _unit_rows(v):
 
 def phase_service(dev, requests, smi) -> dict:
     """``SSSJService(block=64)`` in strict mode (``tile_k`` 64², a raise on
-    any drop) on phase 3's stream in its requests of 4,096, which wraps
-    the ring: its pairs against an engine of the same configuration on
-    ``join_impl="dense"``, its groups against those of the oracle's pairs,
+    any drop) on the first ``SERVICE_REQUESTS`` of phase 3's requests of
+    4,096, which wrap the ring: its pairs against an engine of the same
+    configuration on ``join_impl="dense"``, its groups against those of
+    the oracle's pairs,
     its snapshot against ``stats()``; one more window join and the
     concatenation and merge of its candidate buffers with the self join's
     timed on the card (CUDA events around back-to-back calls, and the
@@ -1224,6 +1241,8 @@ def phase_service(dev, requests, smi) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    requests = requests[:SERVICE_REQUESTS]
+    n_items = sum(len(v) for v, _ in requests)
     svc = SSSJService(theta=THETA, lam=LAM, dim=D, capacity=CAPACITY,
                       block=CONSUMER_BLOCK, device=dev)
     cfg = svc.engine.cfg
@@ -1257,7 +1276,7 @@ def phase_service(dev, requests, smi) -> dict:
     for key in ("pairs_dropped", "window_overflow"):
         if st[key] != oracle["stats"][key]:
             raise AssertionError(f"service {key}: {st[key]} vs dense {oracle['stats'][key]}")
-    if svc.stats.n_items != N_ITEMS or N_ITEMS <= CAPACITY or not pairs:
+    if svc.stats.n_items != n_items or n_items <= CAPACITY or not pairs:
         raise AssertionError(f"service: the ring did not wrap or nothing emitted: {svc.stats}")
     # groups: the oracle's pairs, with the band pairs as the service drained them
     got_keys = set(zip(*(x.tolist() for x in got["pairs"][:2])))
@@ -1295,7 +1314,7 @@ def phase_service(dev, requests, smi) -> dict:
                                 max_pairs=cfg.max_pairs)
 
     cand_bytes = sum(x.numel() * x.element_size() for x in jw.cands)
-    rec = {"phase": "service", "nvidia_smi": smi, "n_items": N_ITEMS,
+    rec = {"phase": "service", "nvidia_smi": smi, "n_items": n_items,
            "config": dataclasses.asdict(cfg), "strict": svc.strict,
            "timed_items": sum(len(v) for v, _ in timed), "seconds": seconds,
            "items_per_s": sum(len(v) for v, _ in timed) / seconds,
@@ -2597,18 +2616,19 @@ def phase_table1(dev, smi, names=TABLE1, cut=None) -> dict:
 # vocabulary 151,936, tied embeddings, qk_norm), random f32 weights drawn
 # on the card from SEED
 LM_ARCH = "qwen3-0.6b"
-# 4k: launch.serve's token stream into SSSJService(block=128): 96 requests
-# of 128 documents x 64 tokens, 25 % planted near-duplicates; 12,288
-# documents wrap the 8,192-slot window
-SERVE = dict(requests=96, batch=128, seq=64, dup_frac=0.25, seed=SEED)
+# 4k: launch.serve's token stream into SSSJService(block=128): 72 requests
+# of 128 documents x 64 tokens, 25 % planted near-duplicates; 9,216
+# documents wrap the 8,192-slot window (72, not 96: the script's time)
+SERVE = dict(requests=72, batch=128, seq=64, dup_frac=0.25, seed=SEED)
 SERVE_SVC = dict(theta=0.85, lam=0.05, dim=1024, capacity=8192, block=128)
 SERVE_CPU_DOCS = 4      # re-embedded on the CPU with the same parameters
 EMBED_TOL = 1e-5        # unit embeddings, card against CPU: f32 in another order
 # 4l: documents long enough that every layer's attention runs flash_attn.cu
 LONG_DOCS, LONG_SEQ = 8, 2048
-# 4m: the fused embed→join for 8 tenants, 2,048 documents of 64 tokens
+# 4m: the fused embed→join for 8 tenants, 1,024 documents of 64 tokens (8
+# requests, not 16: the script's time)
 FUSED_TENANTS = 8
-FUSED = dict(requests=16, batch=128, seq=64, dup_frac=0.25, seed=SEED + 1)
+FUSED = dict(requests=8, batch=128, seq=64, dup_frac=0.25, seed=SEED + 1)
 FUSED_THETAS = tuple((0.85, 0.9)[k % 2] for k in range(FUSED_TENANTS))
 FUSED_LAMS = (0.05,) * FUSED_TENANTS
 FUSED_SVC = dict(dim=1024, capacity=8192, micro_batch=64, span=2)
@@ -2756,28 +2776,34 @@ def _emit_phase(rec: dict) -> None:
     emit(rec)
 
 
-def phase_lm_serve(dev, smi, cfg, params, rec0) -> dict:
-    """4k: the system end to end (:func:`_lm_serve`), qwen3-0.6b at full
-    width into ``SSSJService(theta=0.85, lam=0.05, dim=1024,
-    capacity=8192, block=128)``; the 12,288 documents wrap the window; 4
-    documents re-embedded on the CPU with the same parameters within
-    ``EMBED_TOL`` (the check that the LM's f32 products ran in IEEE f32,
-    not TF32)."""
+def _cpu_embed_check(cfg, params, stream, recorded, label, tol=EMBED_TOL) -> float:
+    """``SERVE_CPU_DOCS`` documents of the first request re-embedded on the
+    CPU with the same parameters (IEEE f32 there, so TF32 on the card
+    shows), within ``tol`` of the card's; returns the error."""
     from repro_torch.models import params_from_numpy, params_to_numpy
     from repro_torch.serving import LMEmbedder
 
-    rec, launches, stream, recorded, _ = _lm_serve(dev, smi, cfg, params, rec0, SERVE,
-                                                   SERVE_SVC, "lm serve", "lm_serve")
-    if rec["documents"] <= SERVE_SVC["capacity"]:
-        raise AssertionError("lm serve: the window did not wrap")
-    # the same parameters on the CPU: IEEE f32 there, so TF32 on the card shows
     params_cpu = params_from_numpy(params_to_numpy(params), "cpu")
     cpu = LMEmbedder(cfg, params_cpu, device="cpu")(stream[0][0][:SERVE_CPU_DOCS])
     del params_cpu
     cpu_err = float(np.abs(cpu - recorded[0][:SERVE_CPU_DOCS]).max())
-    if not cpu_err <= EMBED_TOL:
-        raise AssertionError(f"lm serve: card and CPU embeddings differ by {cpu_err}")
-    rec["cpu_embed_max_abs_err"] = cpu_err
+    if not cpu_err <= tol:
+        raise AssertionError(f"{label}: card and CPU embeddings differ by {cpu_err}")
+    return cpu_err
+
+
+def phase_lm_serve(dev, smi, cfg, params, rec0) -> dict:
+    """4k: the system end to end (:func:`_lm_serve`), qwen3-0.6b at full
+    width into ``SSSJService(theta=0.85, lam=0.05, dim=1024,
+    capacity=8192, block=128)``; the 9,216 documents wrap the window; 4
+    documents re-embedded on the CPU within ``EMBED_TOL``
+    (:func:`_cpu_embed_check`)."""
+    rec, launches, stream, recorded, _ = _lm_serve(dev, smi, cfg, params, rec0, SERVE,
+                                                   SERVE_SVC, "lm serve", "lm_serve")
+    if rec["documents"] <= SERVE_SVC["capacity"]:
+        raise AssertionError("lm serve: the window did not wrap")
+    rec["cpu_embed_max_abs_err"] = _cpu_embed_check(cfg, params, stream, recorded,
+                                                    "lm serve")
     _emit_phase(rec)
     return launches
 
@@ -2871,7 +2897,7 @@ def phase_lm_long(dev, smi, cfg, params, phase="lm_long") -> tuple:
 
 def phase_lm_fused(dev, smi, cfg, params) -> dict:
     """4m: ``MultiTenantSSSJService`` over 8 tenants with ``fused=
-    FusedEmbedder(qwen3-0.6b, params, seq_len=64)``: 2,048 documents of
+    FusedEmbedder(qwen3-0.6b, params, seq_len=64)``: 1,024 documents of
     ``token_requests`` (each request's documents dealt to tenants by a
     seeded draw, one submit a tenant a request, a flush a request), its
     launches read around its own run; beside it the same service fed
@@ -2976,10 +3002,10 @@ def phase_lm_fused(dev, smi, cfg, params) -> dict:
 # top-8 of width 1,024, softmax router, vocabulary 50,304, qk_norm), random
 # f32 weights drawn on the card from SEED: 6,919,100,416 parameters, 25.8 GiB
 MOE_ARCH = "olmoe-1b-7b"
-# 4p: 32 requests of 128 documents x 64 tokens: 8,192 tokens a forward in
-# 16 dispatch groups of 512 tokens, 80 slots an expert a group (1,280 an
-# expert), 25 % planted near-duplicates
-MOE_SERVE = dict(requests=32, batch=128, seq=64, dup_frac=0.25, seed=SEED)
+# 4p: 24 requests of 128 documents x 64 tokens (not 32: the script's time): 8,192
+# tokens a forward in 16 dispatch groups of 512 tokens, 80 slots an expert a
+# group (1,280 an expert), 25 % planted near-duplicates
+MOE_SERVE = dict(requests=24, batch=128, seq=64, dup_frac=0.25, seed=SEED)
 MOE_SVC = dict(theta=0.85, lam=0.05, dim=2048, capacity=8192, block=128)
 NEAR_TIE = 1e-6     # router probabilities this close may rank differently
 MOE_RTOL = 1e-5     # layer 0's MoE output, card against CPU, of its largest |y|
@@ -3097,20 +3123,35 @@ def phase_moe_serve(dev, smi, cfg, params, rec0) -> dict:
     return launches
 
 
-def phase_moe_decode(dev, smi, cfg, params) -> dict:
-    """4r: ``init_lm_caches(cfg, 4, 512, f32)`` primed by a dropless
-    ``lm_forward(caches=)`` over 448 tokens, then 64 ``lm_decode_step``s,
-    teacher-forced: the prefill's and each step's logits against the
-    cache-less ``lm_forward(moe_dropless=True)`` over all 512 tokens at
-    the same positions, within ``DECODE_RTOL`` of its largest |logit|;
-    the argmax token equal wherever the full forward's top two logits
-    differ by more than that.  Each decode step but the last two is
-    timed alone (host clock ending in a sync), the last two run under
-    the profiler (busy share, device time by kernel); no kernel of the
+def _cache_bytes(caches) -> int:
+    """The bytes of every leaf of ``init_lm_caches``' list (attention
+    caches, and the recurrent states of an xLSTM group's dict)."""
+    if isinstance(caches, dict):
+        return sum(_cache_bytes(c) for c in caches.values())
+    if isinstance(caches, (list, tuple)):
+        return sum(_cache_bytes(c) for c in caches)
+    return caches.numel() * caches.element_size()
+
+
+def phase_decode(dev, smi, cfg, params, phase="moe_decode") -> dict:
+    """4r (olmoe-1b-7b) and 4u (xlstm-350m): ``init_lm_caches(cfg, 4, 512,
+    f32)`` primed by ``lm_forward(caches=)`` over 448 tokens, then 64
+    ``lm_decode_step``s, teacher-forced: the prefill's and each step's
+    logits against the cache-less ``lm_forward`` over all 512 tokens at
+    the same positions, within ``DECODE_RTOL`` of its largest |logit|; the
+    argmax token equal wherever the full forward's top two logits differ
+    by more than that.  Both forwards run MoE blocks dropless (what decode
+    computes; no effect on xLSTM blocks).  xLSTM's mLSTM blocks run the
+    prefill in chunks of 64, the full forward in chunks of 256 and each
+    step as one chunk of one token; its sLSTM blocks run one host step a
+    token.  Each decode step but the last two is timed alone (host clock
+    ending in a sync), the last two run under the profiler (busy share,
+    device launches a step, device time by kernel); no kernel of the
     port runs on this path."""
     import torch
     from repro_torch.models import init_lm_caches, lm_decode_step, lm_forward
 
+    label = phase.replace("_", " ")
     t_phase = time.monotonic()
     B, M, P, n = (DECODE[k] for k in ("batch", "max_len", "prefill", "steps"))
     rng = np.random.default_rng(SEED + 6)
@@ -3123,6 +3164,7 @@ def phase_moe_decode(dev, smi, cfg, params) -> dict:
         sync(dev)
         t0 = time.monotonic()
         caches = init_lm_caches(cfg, B, M, torch.float32, device=dev)
+        cache_bytes = _cache_bytes(caches)
         pre, _, caches = lm_forward(params, cfg, tokens=toks[:, :P], caches=caches,
                                     cache_len=0, moe_dropless=True, **f32)
         sync(dev)
@@ -3141,43 +3183,259 @@ def phase_moe_decode(dev, smi, cfg, params) -> dict:
             sync(dev)
             step_s.append(time.monotonic() - t0)
         _, prof = _profile(lambda: [step(pos) for pos in range(P + n - 2, P + n)], dev)
-        return pre, torch.stack(steps, 1), prefill_s, step_s, prof
+        return pre, torch.stack(steps, 1), prefill_s, step_s, prof, cache_bytes
 
-    (pre, dec, prefill_s, step_s, prof), launches = _count_lm_launches(run)
+    (pre, dec, prefill_s, step_s, prof, cache_bytes), launches = _count_lm_launches(run)
     peak_gib = _peak_gib(dev)
-    _expect_lm_launches("moe decode", launches, 0, flash=0)
+    _expect_lm_launches(label, launches, 0, flash=0)
     sync(dev)
     t0 = time.monotonic()
     full, _, _ = lm_forward(params, cfg, tokens=toks, moe_dropless=True, **f32)
     sync(dev)
     full_s = time.monotonic() - t0
     if not (bool(torch.isfinite(dec).all()) and bool(torch.isfinite(pre).all())):
-        raise AssertionError("moe decode: logits not finite")
+        raise AssertionError(f"{label}: logits not finite")
     tol = DECODE_RTOL * float(full.abs().max())
     want = full[:, P:]
     err = float((dec - want).abs().max())
     err_prefill = float((pre - full[:, :P]).abs().max())
     if not (err <= tol and err_prefill <= tol):
-        raise AssertionError(f"moe decode: logits differ from the full forward by {err} "
+        raise AssertionError(f"{label}: logits differ from the full forward by {err} "
                              f"(prefill {err_prefill}), tolerance {tol}")
     top2 = want.topk(2, -1).values
     decided = (top2[..., 0] - top2[..., 1]) > tol
     same = dec.argmax(-1) == want.argmax(-1)
     if not bool(same[decided].all()):
-        raise AssertionError("moe decode: the argmax token differs where the top two "
+        raise AssertionError(f"{label}: the argmax token differs where the top two "
                              "logits are apart")
-    emit({"phase": "moe_decode", "nvidia_smi": smi, "arch": cfg.name, **DECODE,
-          "cache_gib": 2 * cfg.n_layers * B * M * cfg.n_kv_heads
-          * cfg.resolved_head_dim * 4 / 2**30,
+    emit({"phase": phase, "nvidia_smi": smi, "arch": cfg.name, **DECODE,
+          "cache_gib": cache_bytes / 2**30, "cache_bytes": cache_bytes,
           "launches": launches, "prefill_s": prefill_s,
           "decode_ms_median": 1e3 * float(np.median(step_s)),
           "decode_ms_first": 1e3 * step_s[0], "decode_ms_max": 1e3 * max(step_s),
           "tokens_per_s": B * len(step_s) / sum(step_s), "full_forward_s": full_s,
           "profiled_steps": 2, "device_busy_share": prof["device_busy_share"],
+          "device_launches_per_step": prof["device_launches"] / 2,
+          "device_ms_per_step": prof["device_busy_ms"] / 2,
           "max_abs_err": err, "max_abs_err_prefill": err_prefill, "tol": tol,
           "rtol": DECODE_RTOL, "max_abs_logit": float(full.abs().max()),
           "argmax_decided": int(decided.sum()), "argmax_positions": decided.numel(),
           "peak_gib": peak_gib, "phase_s": time.monotonic() - t_phase, "profile": prof})
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# phases 4s-4u: the xLSTM block kinds and their decode
+# --------------------------------------------------------------------- #
+# xlstm-350m at its full width (src/repro_torch/configs/xlstm_350m.py: 24
+# layers in 3 units of 7 mLSTM blocks and an sLSTM block, d_model 1024, 4
+# heads: the mLSTM's inner width 2,048, head dim 512; the sLSTM's head dim
+# 256; conv width 4; vocabulary 50,304, untied head), random f32 weights
+# drawn on the card from SEED: 528,351,400 parameters, 1.97 GiB
+XLSTM_ARCH = "xlstm-350m"
+# 4s: 32 requests of 128 documents x 64 tokens (one mLSTM chunk of 64 a
+# document, 64 sLSTM host steps a block), 25 % planted near-duplicates,
+# into 4k's service (4,096 documents: no wrap)
+XLSTM_SERVE = dict(requests=32, batch=128, seq=64, dup_frac=0.25, seed=SEED)
+# 4s: unit embeddings, card against CPU.  The random-weight xLSTM stack
+# magnifies f32 rounding layer by layer (at reduced() size on the CPU, an
+# input perturbed by one ulp moves its hidden state by 25 ulps after 4
+# blocks, a GQA stack's by 5); 24 blocks at this width put the card 2.9e-5
+# from the CPU.  The phase reports the same ulp probe on the card
+# (``embed_ulp_sensitivity``); TF32 would move them by ~1e-3
+XLSTM_EMBED_TOL = 1e-4
+# 4t: one block's residual branch on the card against the CPU, and the
+# mLSTM's one-token steps against its chunk form, within XLSTM_RTOL of the
+# largest |value| (f32 sums in another order: 1.6e-6 of it, the port
+# against the reference on the CPU at this width over 512 tokens)
+XLSTM_RTOL = 2e-5
+XLSTM_STEP_TOKENS = 256     # one chunk of 256 against 256 steps of one
+
+
+def _device_trace(fn, dev) -> tuple:
+    """One call of ``fn`` under ``torch.profiler``'s CUDA trace, read from
+    its raw events (no Python object an event: a forward of 2,048 sLSTM
+    steps launches 100,000 and more): ``(out, {device_busy_ms,
+    device_launches, wall_ms, device_busy_share})`` over the device's
+    kernels, copies and fills (on the CPU: zeros)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        sync(dev)
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_ns = n = 0
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == cuda and e.duration_ns() > 0
+                and not getattr(e, "is_user_annotation", lambda: False)()):
+            busy_ns += e.duration_ns()
+            n += 1
+    return out, {"device_busy_ms": busy_ns / 1e6, "device_launches": n, "wall_ms": wall_ms,
+                 "device_busy_share": busy_ns / 1e6 / wall_ms}
+
+
+def _rel_err(got, want) -> dict:
+    """The largest |got - want| (both on the host) against the largest
+    |want|."""
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    return {"max_abs_err": float((got - want).abs().max()),
+            "max_abs": float(want.abs().max())}
+
+
+def phase_xlstm_serve(dev, smi, cfg, params, rec0) -> dict:
+    """4s: the system end to end (:func:`_lm_serve`) at xlstm-350m's full
+    width into ``SSSJService(theta=0.85, lam=0.05, dim=1024,
+    capacity=8192, block=128)``: 21 mLSTM blocks (one chunk of 64 a
+    document) and 3 sLSTM blocks (64 host steps each) a forward;
+    ``SERVE_CPU_DOCS`` documents re-embedded on the CPU within
+    ``EMBED_TOL`` (:func:`_cpu_embed_check`); planted copies found.  The
+    device launches of one forward of a request, and of one sLSTM block
+    at S 64 and S 32 (their difference over 32: the host loop's launches
+    a step), from the profiler."""
+    import torch
+    from repro_torch.models.lm import _layer
+    from repro_torch.models.xlstm import slstm_block
+    from repro_torch.serving import pooled_unit_embed
+
+    rec, launches, stream, recorded, flat = _lm_serve(dev, smi, cfg, params, rec0,
+                                                      XLSTM_SERVE, SERVE_SVC, "xlstm serve",
+                                                      "xlstm_serve")
+    rec["cpu_embed_max_abs_err"] = _cpu_embed_check(cfg, params, stream, recorded,
+                                                    "xlstm serve", XLSTM_EMBED_TOL)
+    # the same documents with every embedding-table entry moved by one ulp
+    # (a seeded sign): how far f32 rounding alone moves this stack's output
+    docs = torch.from_numpy(stream[0][0][:SERVE_CPU_DOCS]).to(dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    sign = torch.randint(0, 2, params["embed"].shape, generator=gen, device=dev) * 2 - 1
+    nudged = dict(params, embed=params["embed"] * (1 + 2.0 ** -23 * sign))
+    del sign
+    rec["embed_ulp_sensitivity"] = float((pooled_unit_embed(nudged, cfg, docs)
+                                          - pooled_unit_embed(params, cfg, docs)).abs().max())
+    del nudged
+    copies = _planted_sources(stream)
+    emitted = {(a, b) for a, b, _ in flat}
+    rec.update(planted_detected=len(copies),
+               planted_found=sum(pair in emitted for pair in copies))
+
+    toks = torch.from_numpy(stream[0][0]).to(dev)
+    _, prof = _device_trace(lambda: pooled_unit_embed(params, cfg, toks), dev)
+    p_s = _layer(params["groups"][0]["stacked"], 0)["slstm"]
+    B, S = toks.shape
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    block = {}
+    for n in (S, S // 2):
+        _, p = _device_trace(lambda: slstm_block(p_s, cfg, x[:, :n]), dev)
+        block[n] = p["device_launches"]
+    rec.update(forward_launches=prof["device_launches"],
+               forward_profiled_device_ms=prof["device_busy_ms"],
+               forward_profiled_wall_ms=prof["wall_ms"],
+               forward_profiled_busy_share=prof["device_busy_share"],
+               slstm_block_launches=block[S],
+               slstm_launches_per_step=(block[S] - block[S // 2]) / (S - S // 2))
+    _emit_phase(rec)
+    return launches
+
+
+def phase_xlstm_long(dev, smi, cfg, params) -> dict:
+    """4t: 8 documents of 2,048 tokens through ``pooled_unit_embed``: each
+    mLSTM block runs 8 chunks of 256, each sLSTM block 2,048 host steps;
+    finite unit embeddings, no kernel of the port launched.  The forward
+    unprofiled (wall), then under the profiler (device ms, launches, busy
+    share).  On the first document: layer 0's ``mlstm_block`` on the card
+    against the same block on the CPU; unit 0's ``slstm_block`` (its input
+    the card's output of the unit's 7 mLSTM blocks) on the card against
+    the CPU; and on the card layer 0's ``mlstm_block`` fed the first 256
+    tokens one at a time through a cache (chunks of 1) against one call
+    over them (a chunk of 256), outputs and final states: each within
+    ``XLSTM_RTOL`` of its largest |value| (the blocks' residual branches,
+    ``out - x``)."""
+    import torch
+    from repro_torch._device import ieee_f32
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.models.lm import _layer
+    from repro_torch.models.xlstm import (
+        _mlstm_chunk_size,
+        init_mlstm_cache,
+        mlstm_block,
+        slstm_block,
+    )
+    from repro_torch.serving import pooled_unit_embed
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (LONG_DOCS, LONG_SEQ))
+                            .astype(np.int32)).to(dev)
+    forward = lambda: pooled_unit_embed(params, cfg, toks)   # noqa: E731
+    _reset_peak(dev)
+
+    def run():
+        sync(dev)
+        t0 = time.monotonic()
+        out = forward()
+        sync(dev)
+        return out, time.monotonic() - t0
+
+    (out, seconds), launches = _count_lm_launches(run)
+    peak_gib = _peak_gib(dev)
+    _expect_lm_launches("xlstm long", launches, 0, flash=0)
+    norms = torch.linalg.vector_norm(out, dim=1)
+    if not (bool(torch.isfinite(out).all())
+            and float((norms - 1.0).abs().max()) <= EMBED_TOL):
+        raise AssertionError("xlstm long: embeddings not finite unit vectors")
+    _, prof = _device_trace(forward, dev)
+
+    unit0 = _layer(params["groups"][0]["stacked"], 0)
+    p_m = _layer(unit0["mlstm"], 0)
+    n = XLSTM_STEP_TOKENS
+    with ieee_f32(dev):
+        x = torch.nn.functional.embedding(toks[:1].long(), params["embed"])
+        y_card, _ = mlstm_block(p_m, cfg, x)
+        h = y_card
+        for j in range(1, cfg.xlstm.slstm_every - 1):
+            h, _ = mlstm_block(_layer(unit0["mlstm"], j), cfg, h)
+        s_card, _ = slstm_block(unit0["slstm"], cfg, h)
+        whole_c, step_c = (init_mlstm_cache(cfg, 1, torch.float32, dev) for _ in range(2))
+        whole, _ = mlstm_block(p_m, cfg, x[:, :n], whole_c)
+        steps = torch.empty_like(whole)
+        sync(dev)
+        t0 = time.monotonic()
+        for t in range(n):
+            steps[:, t:t + 1] = mlstm_block(p_m, cfg, x[:, t:t + 1], step_c)[0]
+        sync(dev)
+        step_ms = 1e3 * (time.monotonic() - t0) / n
+    t0 = time.monotonic()
+    on_cpu = lambda tree: params_from_numpy(params_to_numpy(tree), "cpu")   # noqa: E731
+    y_cpu, _ = mlstm_block(on_cpu(p_m), cfg, x.cpu())
+    s_cpu, _ = slstm_block(on_cpu(unit0["slstm"]), cfg, h.cpu())
+    cpu_s = time.monotonic() - t0
+    checks = {
+        "mlstm_card_vs_cpu": _rel_err(y_card - x, y_cpu - x.cpu()),
+        "slstm_card_vs_cpu": _rel_err(s_card - h, s_cpu - h.cpu()),
+        "mlstm_steps_vs_chunk": _rel_err(steps - x[:, :n], whole - x[:, :n]),
+        **{f"mlstm_state_{f}_steps_vs_chunk": _rel_err(a, b)
+           for f, a, b in zip(step_c._fields, step_c, whole_c)},
+    }
+    for name, c in checks.items():
+        if not c["max_abs_err"] <= XLSTM_RTOL * c["max_abs"]:
+            raise AssertionError(f"xlstm long: {name} differs by {c['max_abs_err']} "
+                                 f"(largest |value| {c['max_abs']})")
+    emit({"phase": "xlstm_long", "arch": cfg.name, "nvidia_smi": smi,
+          "documents": LONG_DOCS, "tokens": LONG_SEQ,
+          "mlstm_chunk": _mlstm_chunk_size(cfg, LONG_SEQ), "launches": launches,
+          "seconds": seconds, "forward_wall_ms": 1e3 * seconds,
+          "tokens_per_s": LONG_DOCS * LONG_SEQ / seconds,
+          "forward_device_ms": prof["device_busy_ms"],
+          "forward_profiled_wall_ms": prof["wall_ms"],
+          "device_busy_share": prof["device_busy_share"],
+          "device_launches": prof["device_launches"],
+          "norm_err": float((norms - 1.0).abs().max()), "peak_gib": peak_gib,
+          "checks": checks, "rtol": XLSTM_RTOL, "step_tokens": n,
+          "mlstm_step_ms": step_ms, "cpu_checks_s": cpu_s,
+          "phase_s": time.monotonic() - t_phase})
     return launches
 
 
@@ -3443,7 +3701,14 @@ def main() -> int:
         cfg, params, moe_rec = lm_params(dev, MOE_ARCH)
         by_path["moe_serve"] = phase_moe_serve(dev, smi, cfg, params, moe_rec)
         by_path["moe_long"], moe_flash = phase_lm_long(dev, smi, cfg, params, "moe_long")
-        by_path["moe_decode"] = phase_moe_decode(dev, smi, cfg, params)
+        by_path["moe_decode"] = phase_decode(dev, smi, cfg, params)
+        del params                   # xlstm-350m's 1.97 GiB come next
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, params, xlstm_rec = lm_params(dev, XLSTM_ARCH)
+        by_path["xlstm_serve"] = phase_xlstm_serve(dev, smi, cfg, params, xlstm_rec)
+        by_path["xlstm_long"] = phase_xlstm_long(dev, smi, cfg, params)
+        by_path["xlstm_decode"] = phase_decode(dev, smi, cfg, params, "xlstm_decode")
         lm_s = time.monotonic() - t_lm
         del params
         gc.collect()

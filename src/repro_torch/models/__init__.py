@@ -1,8 +1,8 @@
-"""The LM stack: the attention archs' forward pass and decode in PyTorch.
+"""The LM stack: the ported archs' forward pass and decode in PyTorch.
 
 Counterpart of ``repro.models`` for the ``attn_dense`` and ``attn_moe``
-archs with GQA attention; MLA, hybrid and xLSTM blocks and ``mtp_logits``
-are not ported yet.
+archs with GQA attention and the ``xlstm`` arch (mLSTM and sLSTM
+blocks); MLA and hybrid blocks and ``mtp_logits`` are not ported yet.
 """
 
 from .attention import AttnCache, init_attn_cache  # noqa: F401
@@ -20,4 +20,14 @@ from .lm import (  # noqa: F401
     lm_forward,
     make_plan,
     param_count,
+)
+from .xlstm import (  # noqa: F401
+    MLSTMCache,
+    SLSTMCache,
+    init_mlstm_block,
+    init_mlstm_cache,
+    init_slstm_block,
+    init_slstm_cache,
+    mlstm_block,
+    slstm_block,
 )

@@ -18,6 +18,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from .attention import AttnCache
+from .xlstm import MLSTMCache, SLSTMCache
 
 __all__ = ["params_from_numpy", "params_to_numpy", "caches_from_numpy",
            "caches_to_numpy"]
@@ -57,19 +58,37 @@ def params_to_numpy(params: Any) -> Any:
     return params.detach().cpu().numpy()
 
 
-def caches_from_numpy(caches: Any, device: DeviceLike = None) -> List[AttnCache]:
-    """A list of ``(k, v)`` numpy pairs (the reference's ``AttnCache``
-    leaves) as the port's caches on ``device`` (``None`` = CUDA), in
-    their dtype (bf16 too)."""
+# an xLSTM group's caches, by their key in the group's dict
+_GROUP_CACHES = {"mlstm": MLSTMCache, "slstm": SLSTMCache}
+
+
+def caches_from_numpy(caches: Any, device: DeviceLike = None) -> List[Any]:
+    """The reference's ``init_lm_caches`` list with numpy leaves as the
+    port's caches on ``device`` (``None`` = CUDA), in their dtype (bf16
+    too): an attention group's ``(k, v)`` pair becomes an ``AttnCache``,
+    an xLSTM group's ``{"mlstm": …, "slstm": …}`` an ``MLSTMCache`` and an
+    ``SLSTMCache`` (fields in the reference's order)."""
     dev = resolve_device(device)
-    return [AttnCache(*(_tensor(x, dev) for x in c)) for c in caches]
+
+    def conv(c, kind=AttnCache):
+        if isinstance(c, dict):
+            return {k: conv(v, _GROUP_CACHES[k]) for k, v in c.items()}
+        return kind(*(_tensor(x, dev) for x in c))
+
+    return [conv(c) for c in caches]
 
 
-def caches_to_numpy(caches: List[AttnCache]) -> List[AttnCache]:
-    """The port's caches as ``AttnCache`` pairs of numpy arrays on the
-    host; bf16 leaves come back as float32, which holds them exactly."""
-    def conv(x):
+def caches_to_numpy(caches: List[Any]) -> List[Any]:
+    """The port's caches, each a cache of numpy arrays on the host in the
+    same structure; bf16 leaves come back as float32, which holds them
+    exactly."""
+    def leaf(x):
         x = x.detach().cpu()
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
-    return [AttnCache(*(conv(x) for x in c)) for c in caches]
+    def conv(c):
+        if isinstance(c, dict):
+            return {k: conv(v) for k, v in c.items()}
+        return type(c)(*(leaf(x) for x in c))
+
+    return [conv(c) for c in caches]

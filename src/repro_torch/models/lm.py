@@ -1,4 +1,4 @@
-"""Causal-LM assembly: the forward pass and decode of the attention archs.
+"""Causal-LM assembly: the forward pass and decode of the ported archs.
 
 Counterpart of ``repro.models.lm``.  One :class:`ModelConfig` determines
 the network; layers are grouped into *scan groups* of identically shaped
@@ -7,16 +7,18 @@ reference runs ``jax.lax.scan`` over that axis; the port runs a host loop
 over it, one block at a time on the stacked tensors' slices.
 
 Ported: the ``attn_dense`` group (qwen3-0.6b, qwen2.5-3b, codeqwen1.5-7b,
-deepseek-coder-33b, chameleon-34b, musicgen-medium) and the ``attn_moe``
-group with GQA attention (olmoe-1b-7b), :func:`init_lm`,
-:func:`param_count`, :func:`lm_forward` (with primed caches and the MoE
-aux loss), :func:`init_lm_caches` and :func:`lm_decode_step`.  MLA
-attention, the hybrid and xLSTM plans, ``mtp_logits`` and the logical
-sharding specs (``lm_specs``, ``lm_cache_specs``) are not ported yet and
-raise or are absent (ROADMAP queue 1, items 9b and 10).
+deepseek-coder-33b, chameleon-34b, musicgen-medium), the ``attn_moe``
+group with GQA attention (olmoe-1b-7b) and the ``xlstm`` group
+(xlstm-350m: each unit ``slstm_every - 1`` mLSTM blocks, then one sLSTM
+block), :func:`init_lm`, :func:`param_count`, :func:`lm_forward` (with
+primed caches and the MoE aux loss), :func:`init_lm_caches` and
+:func:`lm_decode_step`.  MLA attention, the hybrid plan, ``mtp_logits``
+and the logical sharding specs (``lm_specs``, ``lm_cache_specs``) are not
+ported yet and raise or are absent (ROADMAP queue 1, items 9b and 10).
 
 Caches are written in place and returned: the reference's functional
-cache updates are donated by its serving programs.  On a CUDA device
+cache updates are donated by its serving programs.  Every layer's cache
+has memory of its own (``init_lm_caches`` repeats, never expands).  On a CUDA device
 every f32 product runs in IEEE f32 (:func:`repro_torch._device.ieee_f32`):
 TF32 would move the embeddings, and so the scores the join holds against
 θ, by about 1e-3.
@@ -36,6 +38,10 @@ from .attention import (
 from .common import Initializer, embed_init, rms_norm
 from .mlp import init_mlp, mlp
 from .moe import init_moe, moe
+from .xlstm import (
+    MLSTMCache, SLSTMCache, init_mlstm_block, init_mlstm_cache, init_slstm_block,
+    init_slstm_cache, mlstm_block, slstm_block,
+)
 
 __all__ = [
     "GroupPlan", "make_plan", "init_lm", "lm_forward", "lm_decode_step",
@@ -43,6 +49,7 @@ __all__ = [
 ]
 
 _ATTN_KINDS = ("attn_dense", "attn_moe")
+_PORTED_KINDS = _ATTN_KINDS + ("xlstm",)
 
 
 class GroupPlan(NamedTuple):
@@ -71,16 +78,16 @@ def make_plan(cfg: ModelConfig) -> List[GroupPlan]:
 
 def _ported_plan(cfg: ModelConfig) -> List[GroupPlan]:
     """The plan, if the port runs every group of it: attention blocks
-    with GQA attention and a dense or MoE feed-forward."""
+    with GQA attention and a dense or MoE feed-forward, and xLSTM units."""
     plan = make_plan(cfg)
-    other = sorted({g.kind for g in plan} - set(_ATTN_KINDS))
+    other = sorted({g.kind for g in plan} - set(_PORTED_KINDS))
     if other or cfg.mla is not None or cfg.mtp:
         what = other or (["mla"] if cfg.mla is not None else []) + (
             ["mtp"] if cfg.mtp else [])
         raise NotImplementedError(
             f"{cfg.name}: block kinds {what} are not ported yet (ROADMAP "
             f"queue 1, item 9b); the port runs GQA attention blocks with a "
-            f"dense or MoE feed-forward"
+            f"dense or MoE feed-forward, and xLSTM blocks"
         )
     return plan
 
@@ -108,6 +115,19 @@ def _init_attn_block(init: Initializer, cfg: ModelConfig, use_moe: bool):
     return params
 
 
+def _init_xlstm_unit(init: Initializer, cfg: ModelConfig):
+    """``slstm_every - 1`` stacked mLSTM blocks, then one sLSTM block."""
+    k = cfg.xlstm.slstm_every
+    mls = [init_mlstm_block(init, cfg) for _ in range(k - 1)]
+    return {"mlstm": _stack(mls), "slstm": init_slstm_block(init, cfg)}
+
+
+def _init_unit(init: Initializer, cfg: ModelConfig, kind: str):
+    if kind == "xlstm":
+        return _init_xlstm_unit(init, cfg)
+    return _init_attn_block(init, cfg, kind == "attn_moe")
+
+
 def _stack(trees: List[Any]):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -115,22 +135,21 @@ def _stack(trees: List[Any]):
 
 
 def _layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked tree (parameters or a cache)."""
+    """Layer ``i``'s slice of a stacked tree (parameters or a cache): a
+    cache (a NamedTuple) is sliced field by field, into views that the
+    layer writes in place."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, AttnCache):
-        return AttnCache(tree.k[i], tree.v[i])
+    if isinstance(tree, tuple):
+        return type(tree)(*(x[i] for x in tree))
     return tree[i]
 
 
 def init_lm(init: Initializer, cfg: ModelConfig) -> Dict[str, Any]:
     """All parameters (float32), drawn in the reference's order; the tree
     mirrors the reference's ``init_lm`` leaf for leaf."""
-    groups = [
-        {"stacked": _stack([_init_attn_block(init, cfg, g.kind == "attn_moe")
-                            for _ in range(g.count)])}
-        for g in _ported_plan(cfg)
-    ]
+    groups = [{"stacked": _stack([_init_unit(init, cfg, g.kind) for _ in range(g.count)])}
+              for g in _ported_plan(cfg)]
     params: Dict[str, Any] = {
         "embed": embed_init(init, (cfg.vocab_size, cfg.d_model)),
         "groups": groups,
@@ -164,14 +183,31 @@ def param_count(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------- #
 # caches
 # --------------------------------------------------------------------- #
+def _tile(x: torch.Tensor, *n: int) -> torch.Tensor:
+    """``x`` repeated along new leading axes ``n``: memory of its own for
+    each copy, which the layers write in place."""
+    return x.repeat(*n, *(1,) * x.dim())
+
+
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int,
-                   dtype: torch.dtype = torch.bfloat16, device=None) -> List[AttnCache]:
-    """Decode caches, one stacked ``AttnCache`` ``(layers, B, M, KV, hd)``
-    a group, parallel to ``params['groups']``; zeros on ``device``."""
-    caches = []
+                   dtype: torch.dtype = torch.bfloat16, device=None) -> List[Any]:
+    """Decode caches, parallel to ``params['groups']``, on ``device``: a
+    stacked ``AttnCache`` ``(layers, B, M, KV, hd)`` of zeros for an
+    attention group; for an xLSTM group ``{"mlstm": MLSTMCache (units,
+    slstm_every - 1, B, …), "slstm": SLSTMCache (units, B, …)}`` in the
+    states' initial values (their conv windows in ``dtype``, the rest
+    f32; ``max_len`` does not apply)."""
+    caches: List[Any] = []
     for g in _ported_plan(cfg):
-        one = init_attn_cache(cfg, batch, max_len, dtype, device)
-        caches.append(AttnCache(*(x[None].repeat(g.count, 1, 1, 1, 1) for x in one)))
+        if g.kind == "xlstm":
+            k = cfg.xlstm.slstm_every
+            ml = init_mlstm_cache(cfg, batch, dtype, device)
+            sl = init_slstm_cache(cfg, batch, dtype, device)
+            caches.append({"mlstm": MLSTMCache(*(_tile(x, g.count, k - 1) for x in ml)),
+                           "slstm": SLSTMCache(*(_tile(x, g.count) for x in sl))})
+        else:
+            one = init_attn_cache(cfg, batch, max_len, dtype, device)
+            caches.append(AttnCache(*(_tile(x, g.count) for x in one)))
     return caches
 
 
@@ -212,6 +248,16 @@ def _attn_block_decode(params, cfg: ModelConfig, x, positions, cache, cache_len,
     return x + y, (k_new, v_new)
 
 
+def _xlstm_unit_apply(params, cfg: ModelConfig, x, cache):
+    """One xLSTM unit (mLSTM blocks, then the sLSTM block), prefill or a
+    decode step alike; the unit's caches, if given, are written in place."""
+    for j in range(cfg.xlstm.slstm_every - 1):
+        c = None if cache is None else _layer(cache["mlstm"], j)
+        x, _ = mlstm_block(_layer(params["mlstm"], j), cfg, x, c)
+    x, _ = slstm_block(params["slstm"], cfg, x, None if cache is None else cache["slstm"])
+    return x
+
+
 def _append_tokens(cache: AttnCache, news, cache_len: int) -> AttnCache:
     """One write of the stacked ``(L, B, 1, KV, hd)`` new tokens per cache
     leaf: the only cache write of a decode step."""
@@ -238,7 +284,7 @@ def lm_forward(
     tokens: Optional[torch.Tensor] = None,     # (B, S) int
     embeds: Optional[torch.Tensor] = None,     # (B, S, D) — modality-stub input
     positions: Optional[torch.Tensor] = None,  # (B, S)
-    caches: Optional[List[AttnCache]] = None,  # from init_lm_caches (prime-for-decode)
+    caches: Optional[List[Any]] = None,        # from init_lm_caches (prime-for-decode)
     cache_len=None,                            # int — write offset
     compute_dtype: torch.dtype = torch.bfloat16,
     return_hidden: bool = False,
@@ -249,7 +295,8 @@ def lm_forward(
     Returns ``(logits, aux, new_caches[, hidden])``, the reference's
     tuple: ``aux`` is the summed MoE load-balance loss (0 without MoE
     blocks), ``new_caches`` the caches with this sequence's k/v written
-    at ``cache_len`` (None without ``caches``), ``hidden`` the
+    at ``cache_len`` and the recurrent states after it (None without
+    ``caches``), ``hidden`` the
     final-normed hidden state.  The logits are computed even when only
     the hidden state is wanted, as in the reference.
     """
@@ -267,6 +314,9 @@ def lm_forward(
             use_moe = g.kind == "attn_moe"
             for i in range(g.count):
                 c = None if caches is None else _layer(caches[gi], i)
+                if g.kind == "xlstm":
+                    x = _xlstm_unit_apply(_layer(stacked, i), cfg, x, c)
+                    continue
                 x, _, aux = _attn_block_apply(_layer(stacked, i), cfg, x, positions, c,
                                               cache_len, use_moe, moe_dropless, arange)
                 if aux is not None:
@@ -282,25 +332,33 @@ def lm_decode_step(
     params,
     cfg: ModelConfig,
     tokens: Optional[torch.Tensor],     # (B, 1) int (or embeds (B, 1, D))
-    caches: List[AttnCache],
+    caches: List[Any],
     cache_len,                          # int — current length (write position)
     compute_dtype: torch.dtype = torch.bfloat16,
     embeds: Optional[torch.Tensor] = None,
 ):
-    """One decode step.  Returns ``(logits (B, 1, V), caches)``, the new
-    token's k/v appended to the caches at ``cache_len`` in place."""
+    """One decode step.  Returns ``(logits (B, 1, V), caches)``: the new
+    token's k/v appended to the attention caches at ``cache_len``, the
+    recurrent states overwritten, in place.  xLSTM units run their
+    prefill blocks at S = 1, as the reference's decode does, and take no
+    position (``cache_len`` bounds only the attention caches)."""
     plan = _ported_plan(cfg)
     x = _embed(params, tokens, embeds, compute_dtype)
     B = x.shape[0]
     cache_len = int(cache_len)
-    M = caches[0].k.shape[2]
-    if not 0 <= cache_len < M:
-        raise ValueError(f"a token at {cache_len} overruns caches of {M}")
+    for g, cache in zip(plan, caches):
+        if g.kind in _ATTN_KINDS and not 0 <= cache_len < cache.k.shape[2]:
+            raise ValueError(f"a token at {cache_len} overruns caches of {cache.k.shape[2]}")
     positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
     new_caches = []
     with ieee_f32(x.device):
         for gi, g in enumerate(plan):
             stacked, cache = params["groups"][gi]["stacked"], caches[gi]
+            if g.kind == "xlstm":
+                for i in range(g.count):
+                    x = _xlstm_unit_apply(_layer(stacked, i), cfg, x, _layer(cache, i))
+                new_caches.append(cache)
+                continue
             use_moe = g.kind == "attn_moe"
             news = []
             for i in range(g.count):

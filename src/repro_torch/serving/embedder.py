@@ -13,7 +13,10 @@ the same code on batches of different sizes, whose products the card may
 order differently, so the two agree to a tolerance that the callers
 measure.  MoE archs run the reference's capacity dispatch (no
 ``moe_dropless``, as in the reference), so a document's embedding also
-depends on the other documents of its batch, through the drops.
+depends on the other documents of its batch, through the drops.  The
+xLSTM arch (xlstm-350m) runs its recurrent blocks from their initial
+states over each document's tokens, pad positions included, as the
+reference does.
 """
 
 from __future__ import annotations

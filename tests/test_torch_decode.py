@@ -12,6 +12,10 @@ from the same state.  f32 at ``reduced()`` sizes; ``atol=1e-5`` (f32
 sums in another order).  The reference's own ``test_decode_matches_full``
 is the model: decode after a primed prefill matches the cache-less full
 forward, here within 1e-5 (the reference's test allows 2e-3).
+xlstm-350m's recurrent caches (``MLSTMCache``, ``SLSTMCache``) go
+through the same steps, every field held against the reference's (the
+states that grow with the sequence relative to their largest value,
+1e-6), and cross packages with a bf16 conv window.
 """
 
 import numpy as np
@@ -28,6 +32,8 @@ from repro.models import lm as jlm
 from repro_torch import configs as tconfigs
 from repro_torch.models import (
     AttnCache,
+    MLSTMCache,
+    SLSTMCache,
     caches_from_numpy,
     caches_to_numpy,
     init_attn_cache,
@@ -43,7 +49,13 @@ from repro_torch.models.common import Initializer
 CPU = "cpu"
 ATOL = 1e-5
 ATTN_ARCHS = ("qwen3-0.6b", "qwen2.5-3b", "codeqwen1.5-7b")
-DECODE_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b", "musicgen-medium")
+DECODE_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b", "musicgen-medium", "xlstm-350m")
+XLSTM = "xlstm-350m"
+# a recurrent state's error, of its largest |value|: a block's state
+# carries its own f32 rounding over every step (within 1e-6 for a block
+# alone, tests/test_torch_xlstm.py) and its input's, which the blocks
+# before it moved (measured 2.5e-6 of the sLSTM cell's largest |c|)
+RTOL_STATE = 1e-5
 
 
 def _cfgs(arch):
@@ -56,6 +68,23 @@ def _np(tree):
 
 def _close(got: torch.Tensor, want, atol=ATOL):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=atol, rtol=0)
+
+
+def _caches_close(got, want):
+    """Every field of every cache (``caches_to_numpy`` output against the
+    reference's numpy caches): k/v within ``ATOL``, recurrent states
+    within ``RTOL_STATE`` of their largest |value|."""
+    for g, w in zip(got, want):
+        if isinstance(g, dict):
+            assert set(g) == set(w)
+            _caches_close([g[k] for k in sorted(g)], [w[k] for k in sorted(w)])
+            continue
+        assert g._fields == w._fields
+        for name, a, b in zip(g._fields, g, w):
+            b = np.asarray(b, np.float32)
+            tol = ATOL if isinstance(g, AttnCache) else RTOL_STATE * max(
+                1.0, float(np.abs(b).max()))
+            np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=name)
 
 
 def _attn_params(arch, seed=21):
@@ -197,9 +226,7 @@ def test_lm_decode_matches_the_reference_and_the_full_forward(arch):
     assert len(gc) == len(wc) and gc[0] is caches[0]
     _close(gpre, wpre)
     _close(gpre, full[:, :P].detach().numpy())
-    for got, want in zip(caches_to_numpy(gc), _np(wc)):
-        _close(torch.from_numpy(got.k), want.k)
-        _close(torch.from_numpy(got.v), want.v)
+    _caches_close(caches_to_numpy(gc), _np(wc))
 
     for pos in range(P, S):
         step = inp[:, pos:pos + 1]
@@ -215,9 +242,7 @@ def test_lm_decode_matches_the_reference_and_the_full_forward(arch):
         assert gl.shape == (B, 1, jcfg.vocab_size)
         _close(gl, wl)
         _close(gl[:, 0], full[:, pos].detach().numpy())
-    for got, want in zip(caches_to_numpy(gc), _np(wc)):
-        _close(torch.from_numpy(got.k), want.k)
-        _close(torch.from_numpy(got.v), want.v)
+    _caches_close(caches_to_numpy(gc), _np(wc))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmoe-1b-7b"])
@@ -268,3 +293,87 @@ def test_lm_decode_runs_on_the_ports_own_params():
     assert float((lo - hi).abs().max()) < 0.05 * float(hi.abs().max())
     with pytest.raises(ValueError, match="overruns"):
         lm_decode_step(tp, tcfg, toks[:, 7:], caches, 8)
+
+
+# --------------------------------------------------------------------- #
+# xlstm-350m: recurrent caches
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xlstm_init_caches_mirror_the_reference(dtype):
+    """``{"mlstm": MLSTMCache (units, k-1, B, ...), "slstm": SLSTMCache
+    (units, B, ...)}``: the reference's shapes, dtypes and initial values
+    (the sLSTM normalizer ones, the mLSTM stabilizer -1e30), each layer's
+    state in memory of its own."""
+    jcfg, tcfg = _cfgs(XLSTM)
+    tdt = getattr(torch, dtype)
+    got = init_lm_caches(tcfg, 3, 40, tdt, CPU)
+    want = _np(jlm.init_lm_caches(jcfg, 3, 40, getattr(jnp, dtype)))
+    assert len(got) == len(want) == 1
+    assert isinstance(got[0]["mlstm"], MLSTMCache) and isinstance(got[0]["slstm"], SLSTMCache)
+    for key in ("mlstm", "slstm"):
+        for name, g, w in zip(got[0][key]._fields, got[0][key], want[0][key]):
+            assert tuple(g.shape) == w.shape, name
+            assert g.dtype == (tdt if name == "conv" else torch.float32), name
+            np.testing.assert_array_equal(g.float().numpy(), w.astype(np.float32))
+            assert g.is_contiguous() and 0 not in g.stride()   # no expanded views
+    ml = got[0]["mlstm"]
+    ml.C[0, 0].fill_(1.0)
+    assert not ml.C[1].any() and not ml.C[0, 0, :1].eq(0).all()
+
+
+def test_xlstm_decode_from_the_reference_caches():
+    """The reference's primed xLSTM caches carried across, their conv
+    windows in bf16 (the reference's default) as bits: one decode step of
+    each package from the same state, logits and every field after it."""
+    jcfg, tcfg = _cfgs(XLSTM)
+    jp = _ref_params(XLSTM)
+    tp = params_from_numpy(_np(jp), CPU)
+    B, P = 3, 10
+    toks = np.random.default_rng(27).integers(1, jcfg.vocab_size, (B, P + 1)).astype(np.int32)
+    _, _, wc = jlm.lm_forward(jp, jcfg, tokens=jnp.asarray(toks[:, :P]),
+                              caches=jlm.init_lm_caches(jcfg, B, 16), cache_len=jnp.int32(0),
+                              compute_dtype=jnp.float32)
+    ref_caches = _np(wc)
+    caches = caches_from_numpy(ref_caches, CPU)
+    assert caches[0]["mlstm"].conv.dtype == caches[0]["slstm"].conv.dtype == torch.bfloat16
+    assert caches[0]["mlstm"].C.dtype == torch.float32
+    back = caches_to_numpy(caches)
+    for key in ("mlstm", "slstm"):
+        for g, w in zip(back[0][key], ref_caches[0][key]):
+            np.testing.assert_array_equal(g, w.astype(np.float32))   # exact both ways
+    wl, wc2 = jlm.lm_decode_step(jp, jcfg, jnp.asarray(toks[:, P:]), wc, jnp.int32(P),
+                                 compute_dtype=jnp.float32)
+    gl, gc2 = lm_decode_step(tp, tcfg, torch.from_numpy(toks[:, P:]), caches, P,
+                             compute_dtype=torch.float32)
+    _close(gl, wl)
+    got, want = caches_to_numpy(gc2), _np(wc2)
+    for key in ("mlstm", "slstm"):
+        for name, g, w in zip(got[0][key]._fields, got[0][key], want[0][key]):
+            w = w.astype(np.float32)
+            if name == "conv":
+                # the window's new row: f32 values a few 1e-7 apart may round
+                # to neighbouring bf16 numbers (one step: 2^-7 of the value)
+                np.testing.assert_array_equal(g[..., :-1, :], w[..., :-1, :])
+                np.testing.assert_allclose(g[..., -1, :], w[..., -1, :], rtol=2 ** -7,
+                                           atol=1e-6)
+            else:
+                np.testing.assert_allclose(g, w, rtol=0,
+                                           atol=RTOL_STATE * max(1.0, np.abs(w).max()))
+
+
+def test_xlstm_decode_ignores_cache_len_and_runs_on_the_ports_own_params():
+    """The recurrent caches have no length: decode takes any position (the
+    reference's xLSTM decode ignores ``cache_len``); bf16 compute with
+    bf16 windows stays near the f32 step."""
+    _, tcfg = _cfgs(XLSTM)
+    tp = init_lm(Initializer(torch.Generator().manual_seed(28), CPU), tcfg)
+    toks = torch.from_numpy(np.random.default_rng(28).integers(1, 512, (2, 8)))
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        caches = init_lm_caches(tcfg, 2, 4, dt, CPU)
+        _, _, caches = lm_forward(tp, tcfg, tokens=toks[:, :7], caches=caches, cache_len=0,
+                                  compute_dtype=dt)
+        out[dt], _ = lm_decode_step(tp, tcfg, toks[:, 7:], caches, 7, compute_dtype=dt)
+    lo, hi = out[torch.bfloat16].float(), out[torch.float32]
+    assert out[torch.bfloat16].dtype == torch.bfloat16 and bool(torch.isfinite(lo).all())
+    assert float((lo - hi).abs().max()) < 0.05 * float(hi.abs().max())

@@ -9,7 +9,9 @@ and the slice end to end: the reference's ``launch.serve.run_service``
 and the port's, each driving its ``SSSJService`` with its ``LMEmbedder``
 on the same parameters and the same token stream, emit the same pairs
 request by request outside an ε-band of 1e-5 around θ (scores within
-1e-5) and the same duplicate groups and trends.
+1e-5) and the same duplicate groups and trends.  The same for
+xlstm-350m (``reduced()``: two units of an mLSTM and an sLSTM block),
+its embeddings within ``XLSTM_ATOL``.
 """
 
 import numpy as np
@@ -33,6 +35,10 @@ CPU = "cpu"
 ATOL = 1e-5
 BAND = 1e-5
 ARCH = "qwen3-0.6b"
+XLSTM = "xlstm-350m"
+# unit embeddings of xlstm-350m: its four recurrent blocks compound their
+# f32 differences from the reference (tests/test_torch_models.py)
+XLSTM_ATOL = 2e-5
 
 
 @pytest.fixture(scope="module")
@@ -147,3 +153,63 @@ def test_token_requests_plant_copies():
         assert toks.shape == (8, 20) and toks.dtype == np.int32
         assert toks.min() >= 1 and toks.max() < 512
         np.testing.assert_allclose(ts, r + np.arange(8) * 0.01)
+
+
+# --------------------------------------------------------------------- #
+# xlstm-350m
+# --------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def xlstm_ref():
+    return JEmbedder(JARCHS[XLSTM].reduced(), key=jax.random.key(1))
+
+
+def test_xlstm_pooled_unit_embed_matches(xlstm_ref):
+    """The recurrent stack's embeddings, padded and all-pad rows
+    included, through ``pooled_unit_embed`` and ``LMEmbedder``."""
+    params = params_from_numpy(jax.tree.map(np.asarray, xlstm_ref.params), CPU)
+    toks = _tokens(4, B=8, S=48)
+    want = j_pooled(xlstm_ref.params, xlstm_ref.cfg, jnp.asarray(toks))
+    got = pooled_unit_embed(params, ARCHS[XLSTM].reduced(), torch.from_numpy(toks))
+    assert got.dtype == torch.float32 and got.shape == (8, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=XLSTM_ATOL, rtol=0)
+    assert not got[2].any()
+    emb = LMEmbedder(ARCHS[XLSTM].reduced(), params=params, device=CPU)(toks)
+    np.testing.assert_allclose(np.linalg.norm(emb[3:], axis=1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(emb, xlstm_ref(toks), atol=XLSTM_ATOL, rtol=0)
+
+
+def test_xlstm_run_service_matches_the_reference(monkeypatch):
+    """``run_service("xlstm-350m")`` in both packages, the port's
+    embedder on the reference run's parameters: the same pairs request
+    by request outside the ε-band, scores within ``XLSTM_ATOL``, the
+    same groups and trends."""
+    kw = dict(requests=16, batch=16, seq=64, theta=0.85, lam=0.05, verbose=False)
+    ref_log, log = [], []
+    monkeypatch.setattr(jserve, "SSSJService", _recording(JService, ref_log))
+    ref_svc, ref_groups, ref_trends = jserve.run_service(XLSTM, **kw)
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_svc.embed_fn.params), CPU)
+    monkeypatch.setattr(tserve, "SSSJService", _recording(SSSJService, log))
+    monkeypatch.setattr(
+        tserve, "LMEmbedder",
+        lambda cfg, generator=None, device=None: LMEmbedder(cfg, params, device=device))
+    svc, groups, trends = tserve.run_service(XLSTM, device=CPU, **kw)
+
+    assert len(log) == len(ref_log) == 16
+    n_pairs = 0
+    for (tok, ts, pairs), (jtok, jts, jpairs) in zip(log, ref_log):
+        np.testing.assert_array_equal(tok, jtok)
+        assert _outside_band(pairs, 0.85) == _outside_band(jpairs, 0.85)
+        js = {(a, b): s for a, b, s in jpairs}
+        for a, b, s in pairs:
+            if (a, b) in js:
+                assert abs(s - js[(a, b)]) <= XLSTM_ATOL
+        n_pairs += len(pairs)
+    assert n_pairs >= 5        # planted copies did emit (7 with these weights)
+    assert groups and groups == ref_groups and trends == ref_trends
+    assert svc.stats.n_items == ref_svc.stats.n_items == 16 * 16
+
+
+def test_xlstm_run_service_smoke_on_cpu(capsys):
+    svc, groups, _ = tserve.run_service(XLSTM, requests=6, batch=16, device=CPU)
+    assert "items=96" in capsys.readouterr().out
+    assert svc.stats.n_items == 96 and svc.engine.device.type == "cpu" and groups

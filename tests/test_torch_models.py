@@ -14,7 +14,9 @@ Above 1,024 tokens the reference's attention runs
 ``chunked_causal_attention``; the port runs the flash kernel's plain
 version there (positions ``arange(S)``) and its own
 ``chunked_causal_attention`` for explicit positions: both are held to
-the reference's function.  The MLA, hybrid and xLSTM archs raise
+the reference's function.  xlstm-350m's tree, ``param_count`` and
+forward are held here (its blocks in ``tests/test_torch_xlstm.py``,
+within ``XLSTM_ATOL``); the MLA and hybrid archs raise
 ``NotImplementedError`` naming ROADMAP item 9b; the MoE block kind and
 the decode path are held in ``tests/test_torch_moe.py`` and
 ``tests/test_torch_decode.py``.
@@ -61,7 +63,12 @@ ATOL = 1e-5
 FLASH_ATOL = 2e-5
 DENSE_ARCHS = ("qwen3-0.6b", "qwen2.5-3b", "codeqwen1.5-7b", "deepseek-coder-33b",
                "chameleon-34b", "musicgen-medium")
-OTHER_ARCHS = ("deepseek-v3-671b", "zamba2-2.7b", "xlstm-350m")
+OTHER_ARCHS = ("deepseek-v3-671b", "zamba2-2.7b")
+XLSTM = "xlstm-350m"
+# xlstm-350m's hidden state: four recurrent blocks in a row, each within
+# ~1e-6 of the reference at its output's scale, compound (measured 8.6e-6
+# on |h| up to 3.5 at 2 x 40 tokens)
+XLSTM_ATOL = 2e-5
 
 
 def _cfgs(arch):
@@ -240,7 +247,7 @@ def _shapes(tree):
     return jax.tree.map(lambda x: tuple(np.shape(x)), tree)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + (XLSTM,))
 def test_init_lm_mirrors_the_reference_tree(arch):
     jcfg, tcfg = _cfgs(arch)
     got = params_to_numpy(init_lm(Initializer(torch.Generator().manual_seed(0), CPU),
@@ -324,3 +331,76 @@ def test_other_block_kinds_raise(arch):
         init_lm_caches(tcfg, 1, 8, device=CPU)
     with pytest.raises(NotImplementedError, match="9b"):
         lm_decode_step({}, tcfg, torch.ones((1, 1), dtype=torch.int64), [], 0)
+
+
+# --------------------------------------------------------------------- #
+# xlstm-350m
+# --------------------------------------------------------------------- #
+def test_xlstm_tree_and_param_count():
+    """Each unit stacks ``slstm_every - 1`` mLSTM blocks beside one sLSTM
+    block, and the group stacks the units: mLSTM leaves ``(units, k-1,
+    ...)``, sLSTM leaves ``(units, ...)``; the published size's count."""
+    jcfg, tcfg = _cfgs(XLSTM)
+    full = tconfigs.get_config(XLSTM)
+    assert param_count(full) == jlm.param_count(jconfigs.get_config(XLSTM)) == 528_351_400
+    for cfg in (tcfg, full):
+        tree = init_lm(Initializer(device="meta"), cfg)
+        units, k = cfg.n_layers // cfg.xlstm.slstm_every, cfg.xlstm.slstm_every
+        stacked = tree["groups"][0]["stacked"]
+        assert set(stacked) == {"mlstm", "slstm"}
+        di = int(cfg.xlstm.mlstm_proj_factor * cfg.d_model)
+        assert tuple(stacked["mlstm"]["w_q"].shape) == (units, k - 1, di, di)
+        assert tuple(stacked["slstm"]["r_z"].shape) == (
+            units, cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.d_model // cfg.n_heads)
+    got = params_to_numpy(init_lm(Initializer(torch.Generator().manual_seed(1), CPU), tcfg))
+    again = params_to_numpy(params_from_numpy(got, CPU))
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(again)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got["groups"][0]["stacked"]["mlstm"]["b_f"][0, 0],
+                                  np.asarray(_ref_params(XLSTM)["groups"][0]["stacked"]
+                                             ["mlstm"]["b_f"][0, 0]))
+
+
+@pytest.mark.parametrize("B,S", [(2, 40), (1, 320)])
+def test_xlstm_lm_forward_matches(B, S):
+    """Hidden state and logits from the reference's parameters, f32: one
+    mLSTM chunk of 40, and five chunks of 64 over 320 tokens."""
+    jcfg, tcfg = _cfgs(XLSTM)
+    jp = _ref_params(XLSTM)
+    tp = params_from_numpy(_np(jp), CPU)
+    toks = np.random.default_rng(30 + S).integers(1, jcfg.vocab_size, (B, S)).astype(np.int32)
+    wl, waux, wc, wh = jlm.lm_forward(jp, jcfg, tokens=jnp.asarray(toks),
+                                      compute_dtype=jnp.float32, return_hidden=True)
+    gl, aux, gc, gh = lm_forward(tp, tcfg, tokens=torch.from_numpy(toks),
+                                 compute_dtype=torch.float32, return_hidden=True)
+    assert gc is None and wc is None and float(aux) == float(waux) == 0.0
+    assert gl.shape == (B, S, jcfg.vocab_size) and gh.shape == (B, S, 64)
+    _close(gh, wh, XLSTM_ATOL)
+    _close(gl, wl)
+
+
+def test_xlstm_round_trip_to_the_reference():
+    """The port's own xLSTM parameters carried to the reference."""
+    jcfg, tcfg = _cfgs(XLSTM)
+    tp = init_lm(Initializer(torch.Generator().manual_seed(31), CPU), tcfg)
+    back = params_to_numpy(tp)
+    toks = np.random.default_rng(31).integers(1, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    wl, _, _, wh = jlm.lm_forward(jax.tree.map(jnp.asarray, back), jcfg,
+                                  tokens=jnp.asarray(toks), compute_dtype=jnp.float32,
+                                  return_hidden=True)
+    gl, _, _, gh = lm_forward(tp, tcfg, tokens=torch.from_numpy(toks),
+                              compute_dtype=torch.float32, return_hidden=True)
+    _close(gh, wh, XLSTM_ATOL)
+    _close(gl, wl)
+
+
+def test_xlstm_bf16_runs():
+    """bf16 compute: the blocks' cores stay f32, the logits come out bf16
+    and close to the f32 forward's."""
+    _, tcfg = _cfgs(XLSTM)
+    tp = params_from_numpy(_np(_ref_params(XLSTM)), CPU)
+    toks = torch.from_numpy(np.random.default_rng(32).integers(1, 512, (2, 12)))
+    lo, _, _ = lm_forward(tp, tcfg, tokens=toks)
+    hi, _, _ = lm_forward(tp, tcfg, tokens=toks, compute_dtype=torch.float32)
+    assert lo.dtype == torch.bfloat16 and bool(torch.isfinite(lo.float()).all())
+    assert float((lo.float() - hi).abs().max()) < 0.05 * float(hi.abs().max())
