@@ -97,7 +97,7 @@ kernel timings, see ``main``):
       ``paper/*`` in the engine's snapshot;
    p. olmoe-1b-7b at full width (16 layers, d 2,048, 64 experts top-8,
       random f32 weights drawn on the card after qwen3-0.6b's are freed):
-      ``launch.serve``'s token stream (24 requests of 128 x 64 tokens,
+      ``launch.serve``'s token stream (16 requests of 128 x 64 tokens,
       capacity dispatch) into ``SSSJService(theta=0.85, lam=0.05,
       dim=2048, capacity=8192, block=128)``, its pairs, groups and trends
       against the same service on ``join_impl="dense"`` fed the same
@@ -114,7 +114,7 @@ kernel timings, see ``main``):
       ``DECODE_RTOL`` of its largest logit, argmax equal where decided;
    s. xlstm-350m at full width (24 layers: 3 units of 7 mLSTM blocks and
       an sLSTM block, d 1,024, 4 heads, random f32 weights drawn on the
-      card after olmoe's are freed): 4k's serve path and checks on 32
+      card after olmoe's are freed): 4k's serve path and checks on 16
       requests of 128 x 64 tokens, planted copies found, device launches
       a forward and an sLSTM step;
    t. 8 xlstm documents of 2,048 tokens (mLSTM chunks of 256, 2,048 sLSTM
@@ -124,6 +124,18 @@ kernel timings, see ``main``):
       ``XLSTM_RTOL`` of the largest |value|;
    u. xlstm decode: 4r's protocol on the recurrent caches (prefill chunks
       of 64, the full forward's of 256, a step one token);
+   v. zamba2-2.7b at full width (54 Mamba2 layers in 9 units of 6, each
+      unit followed by the one shared attention+MLP block; d 2,560,
+      random f32 weights drawn on the card after xlstm's are freed): 4k's
+      serve path and checks on 16 requests of 128 x 64 tokens into
+      ``SSSJService(dim=2560)``, planted copies found, device launches a
+      forward, the one-ulp probe beside the CPU check;
+   w. 8 zamba documents of 2,048 tokens (SSD chunks of 256), the shared
+      block's 9 invocations on ``flash_attn.cu`` (Dh 80 padded to 128);
+      unit 0's first Mamba2 layer on the card against the CPU, and the
+      shared block's flash route against ``chunked_causal_attention``;
+   x. zamba decode: caches of 4 x 256 primed by one prefill of 192
+      tokens, 64 steps against the cache-less forward over 256;
 5. flash attention through ``repro_torch.kernels.flash_attention`` at
    the head geometry of qwen3-0.6b (H 16, Hkv 8, Dh 128, S 4096) and
    qwen2.5-3b (H 16, Hkv 2, S 2048) in f32 and bf16, with a ragged S, a
@@ -138,7 +150,7 @@ kernel timings, see ``main``):
    ``device_ms``, the plain version's and the library call's beside) and
    bound of each kernel, the launches counted over the run of its own
    path (flash attention's: phase 4l's), and over each path of phases
-   3-4u (``launches_by_path``), after a line with the script's total
+   3-4x (``launches_by_path``), after a line with the script's total
    seconds;
 7. ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -2670,7 +2682,8 @@ def lm_params(dev, arch=LM_ARCH):
                          "init_s": time.monotonic() - t0}
 
 
-def _lm_serve(dev, smi, cfg, params, rec0, serve, svc_cfg, label, phase) -> tuple:
+def _lm_serve(dev, smi, cfg, params, rec0, serve, svc_cfg, label, phase,
+              fwd=(3, 1)) -> tuple:
     """``launch.serve``'s token stream (``serve``) through the port's
     ``LMEmbedder`` into ``SSSJService(**svc_cfg)``, strict: each request's
     pairs against the same service on ``join_impl="dense"`` fed the same
@@ -2678,8 +2691,9 @@ def _lm_serve(dev, smi, cfg, params, rec0, serve, svc_cfg, label, phase) -> tupl
     its groups and trends against those of the oracle's pairs, the
     embeddings finite unit vectors.  The last two requests run under the
     profiler (busy share); one forward of a request's documents is timed
-    on the device.  Returns ``(record, launches, stream, embeddings by
-    request, emitted pairs)``."""
+    on the device (``fwd``: repetitions, warm-up calls).  Returns
+    ``(record, launches, stream, embeddings by request, emitted
+    pairs)``."""
     import dataclasses
 
     import torch
@@ -2747,8 +2761,8 @@ def _lm_serve(dev, smi, cfg, params, rec0, serve, svc_cfg, label, phase) -> tupl
 
     toks = torch.from_numpy(stream[0][0]).to(dev)
     forward = lambda: pooled_unit_embed(params, cfg, toks)   # noqa: E731
-    fwd_ms = cuda_ms(forward, 3, warmup=1)
-    fwd_device_ms = device_ms(forward, 3, warmup=1)
+    fwd_ms = cuda_ms(forward, fwd[0], warmup=fwd[1])
+    fwd_device_ms = device_ms(forward, fwd[0], warmup=fwd[1])
     n_timed = sum(len(t) for t, _ in timed)
     rec = {"phase": phase, "nvidia_smi": smi, **rec0, "config": svc_cfg,
            "stream": serve, "documents": n_docs, "planted": planted,
@@ -2808,19 +2822,26 @@ def phase_lm_serve(dev, smi, cfg, params, rec0) -> dict:
     return launches
 
 
-def phase_lm_long(dev, smi, cfg, params, phase="lm_long") -> tuple:
-    """4l (qwen3-0.6b) and 4q (olmoe-1b-7b): 8 documents of 2,048 tokens
-    through ``pooled_unit_embed``, so that every layer's attention runs
-    ``flash_attn.cu`` (positions ``arange(S)``, S above 1,024): one flash
-    launch a layer (28; 16), finite unit embeddings; on layer 0's real
-    q, k and v the flash route against the port's
+def phase_lm_long(dev, smi, cfg, params, phase="lm_long", attn_input=None,
+                  flash_launches=None, extra=None, fwd=(2, 1)) -> tuple:
+    """4l (qwen3-0.6b), 4q (olmoe-1b-7b) and 4w (zamba2-2.7b): 8 documents
+    of 2,048 tokens through ``pooled_unit_embed``, so that every attention
+    block runs ``flash_attn.cu`` (positions ``arange(S)``, S above
+    1,024): one flash launch an attention block (28; 16; 9 invocations of
+    zamba's shared block, or ``flash_launches``), finite unit embeddings;
+    on the first attention block's real q, k and v (its input and its
+    parameters from ``attn_input(embeddings)``; by default the embeddings
+    and layer 0) the flash route against the port's
     ``chunked_causal_attention`` on the card within ``FLASH_F32_TOL``;
     flash timed at this shape (B 8, H 16, S 2,048, Dh 128; Hkv 8, or 16
-    for olmoe's MHA) beside its plain version and SDPA, and the whole
-    forward on the device.  Returns ``(launches, flash record)``."""
+    for olmoe's MHA; zamba's H 32 = Hkv, Dh 80 padded to 128) beside its
+    plain version and SDPA, and the whole forward on the device (``fwd``:
+    repetitions, warm-up calls); the record gains ``extra()``'s items.
+    Returns ``(launches, flash record)``."""
     import torch
     from repro_torch._device import ieee_f32
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention.kernel import kernel_head_dim
     from repro_torch.models.attention import _project_qkv, chunked_causal_attention
     from repro_torch.models.common import rms_norm
     from repro_torch.models.lm import _layer
@@ -2841,17 +2862,21 @@ def phase_lm_long(dev, smi, cfg, params, phase="lm_long") -> tuple:
 
     (out, seconds), launches = _count_lm_launches(run)
     peak_gib = _peak_gib(dev)
-    _expect_lm_launches(phase, launches, 0, flash=cfg.n_layers)
+    _expect_lm_launches(phase, launches, 0, flash=flash_launches or cfg.n_layers)
     norms = torch.linalg.vector_norm(out, dim=1)
     if not (bool(torch.isfinite(out).all())
             and float((norms - 1.0).abs().max()) <= EMBED_TOL):
         raise AssertionError(f"{phase}: embeddings not finite unit vectors")
 
-    # layer 0's q, k, v: the flash route against the chunked online softmax
-    p0 = _layer(params["groups"][0]["stacked"], 0)
+    # the first attention block's q, k, v: the flash route against the
+    # chunked online softmax
     hd = cfg.resolved_head_dim
     with ieee_f32(dev):
         x = torch.nn.functional.embedding(toks.long(), params["embed"])
+        if attn_input is None:
+            p0 = _layer(params["groups"][0]["stacked"], 0)
+        else:
+            x, p0 = attn_input(x)
         pos = torch.arange(LONG_SEQ, dtype=torch.int32, device=dev)[None].expand(
             LONG_DOCS, LONG_SEQ)
         q, k, v = _project_qkv(p0["attn"], cfg, rms_norm(p0["norm1"], x, cfg.norm_eps), pos)
@@ -2883,14 +2908,21 @@ def phase_lm_long(dev, smi, cfg, params, phase="lm_long") -> tuple:
                  "device_ms_by_kernel": _by_kernel(parts)}
     flash_rec["bound_ms"], flash_rec["bound_by"] = bound_ms(nbytes, flops)
     flash_rec["bound_3xtf32_ms"] = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)[0]
+    Dk = kernel_head_dim(Dh)
+    if Dk != Dh:   # the work the kernel does at its zero-padded width
+        flash_rec["kernel_head_dim"] = Dk
+        flash_rec["bound_padded_ms"] = bound_ms(nbytes * Dk / Dh, flops * Dk / Dh)[0]
+        flash_rec["bound_padded_3xtf32_ms"] = bound_ms(nbytes * Dk / Dh, 3 * flops * Dk / Dh,
+                                                       PEAK_TF32_FLOPS)[0]
     forward = lambda: pooled_unit_embed(params, cfg, toks)   # noqa: E731
     rec = {"phase": phase, "arch": cfg.name, "nvidia_smi": smi, "documents": LONG_DOCS,
            "tokens": LONG_SEQ, "launches": launches, "seconds": seconds,
            "tokens_per_s": LONG_DOCS * LONG_SEQ / seconds,
-           "forward_ms": cuda_ms(forward, 2, warmup=1),
-           "forward_device_ms": device_ms(forward, 2, warmup=1),
+           "forward_ms": cuda_ms(forward, fwd[0], warmup=fwd[1]),
+           "forward_device_ms": device_ms(forward, fwd[0], warmup=fwd[1]),
            "norm_err": float((norms - 1.0).abs().max()), "peak_gib": peak_gib,
-           "flash": flash_rec, "phase_s": time.monotonic() - t_phase}
+           "flash": flash_rec, **(extra() if extra else {}),
+           "phase_s": time.monotonic() - t_phase}
     emit(rec)
     return launches, flash_rec
 
@@ -3002,10 +3034,10 @@ def phase_lm_fused(dev, smi, cfg, params) -> dict:
 # top-8 of width 1,024, softmax router, vocabulary 50,304, qk_norm), random
 # f32 weights drawn on the card from SEED: 6,919,100,416 parameters, 25.8 GiB
 MOE_ARCH = "olmoe-1b-7b"
-# 4p: 24 requests of 128 documents x 64 tokens (not 32: the script's time): 8,192
+# 4p: 16 requests of 128 documents x 64 tokens (not 32 or 24: the script's time): 8,192
 # tokens a forward in 16 dispatch groups of 512 tokens, 80 slots an expert a
 # group (1,280 an expert), 25 % planted near-duplicates
-MOE_SERVE = dict(requests=24, batch=128, seq=64, dup_frac=0.25, seed=SEED)
+MOE_SERVE = dict(requests=16, batch=128, seq=64, dup_frac=0.25, seed=SEED)
 MOE_SVC = dict(theta=0.85, lam=0.05, dim=2048, capacity=8192, block=128)
 NEAR_TIE = 1e-6     # router probabilities this close may rank differently
 MOE_RTOL = 1e-5     # layer 0's MoE output, card against CPU, of its largest |y|
@@ -3133,9 +3165,10 @@ def _cache_bytes(caches) -> int:
     return caches.numel() * caches.element_size()
 
 
-def phase_decode(dev, smi, cfg, params, phase="moe_decode") -> dict:
-    """4r (olmoe-1b-7b) and 4u (xlstm-350m): ``init_lm_caches(cfg, 4, 512,
-    f32)`` primed by ``lm_forward(caches=)`` over 448 tokens, then 64
+def phase_decode(dev, smi, cfg, params, phase="moe_decode", protocol=DECODE) -> dict:
+    """4r (olmoe-1b-7b), 4u (xlstm-350m) and 4x (zamba2-2.7b, on
+    ``ZAMBA_DECODE``): ``init_lm_caches(cfg, 4, 512, f32)`` primed by
+    ``lm_forward(caches=)`` over 448 tokens (``protocol``), then 64
     ``lm_decode_step``s, teacher-forced: the prefill's and each step's
     logits against the cache-less ``lm_forward`` over all 512 tokens at
     the same positions, within ``DECODE_RTOL`` of its largest |logit|; the
@@ -3144,16 +3177,19 @@ def phase_decode(dev, smi, cfg, params, phase="moe_decode") -> dict:
     computes; no effect on xLSTM blocks).  xLSTM's mLSTM blocks run the
     prefill in chunks of 64, the full forward in chunks of 256 and each
     step as one chunk of one token; its sLSTM blocks run one host step a
-    token.  Each decode step but the last two is timed alone (host clock
-    ending in a sync), the last two run under the profiler (busy share,
-    device launches a step, device time by kernel); no kernel of the
-    port runs on this path."""
+    token.  zamba's Mamba2 layers run the prefill as one SSD chunk of
+    192, the full forward as one of 256 and each step as the recurrent
+    update; its shared block runs the dense softmax over the cache.  Each
+    decode step but the last two is timed alone (host clock ending in a
+    sync), the last two run under the profiler (busy share, device
+    launches a step, device time by kernel); no kernel of the port runs
+    on this path."""
     import torch
     from repro_torch.models import init_lm_caches, lm_decode_step, lm_forward
 
     label = phase.replace("_", " ")
     t_phase = time.monotonic()
-    B, M, P, n = (DECODE[k] for k in ("batch", "max_len", "prefill", "steps"))
+    B, M, P, n = (protocol[k] for k in ("batch", "max_len", "prefill", "steps"))
     rng = np.random.default_rng(SEED + 6)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P + n))
                             .astype(np.int32)).to(dev)
@@ -3208,7 +3244,7 @@ def phase_decode(dev, smi, cfg, params, phase="moe_decode") -> dict:
     if not bool(same[decided].all()):
         raise AssertionError(f"{label}: the argmax token differs where the top two "
                              "logits are apart")
-    emit({"phase": phase, "nvidia_smi": smi, "arch": cfg.name, **DECODE,
+    emit({"phase": phase, "nvidia_smi": smi, "arch": cfg.name, **protocol,
           "cache_gib": cache_bytes / 2**30, "cache_bytes": cache_bytes,
           "launches": launches, "prefill_s": prefill_s,
           "decode_ms_median": 1e3 * float(np.median(step_s)),
@@ -3233,10 +3269,10 @@ def phase_decode(dev, smi, cfg, params, phase="moe_decode") -> dict:
 # 256; conv width 4; vocabulary 50,304, untied head), random f32 weights
 # drawn on the card from SEED: 528,351,400 parameters, 1.97 GiB
 XLSTM_ARCH = "xlstm-350m"
-# 4s: 32 requests of 128 documents x 64 tokens (one mLSTM chunk of 64 a
-# document, 64 sLSTM host steps a block), 25 % planted near-duplicates,
-# into 4k's service (4,096 documents: no wrap)
-XLSTM_SERVE = dict(requests=32, batch=128, seq=64, dup_frac=0.25, seed=SEED)
+# 4s: 16 requests of 128 documents x 64 tokens (not 32: the script's time;
+# one mLSTM chunk of 64 a document, 64 sLSTM host steps a block), 25 %
+# planted near-duplicates, into 4k's service (2,048 documents: no wrap)
+XLSTM_SERVE = dict(requests=16, batch=128, seq=64, dup_frac=0.25, seed=SEED)
 # 4s: unit embeddings, card against CPU.  The random-weight xLSTM stack
 # magnifies f32 rounding layer by layer (at reduced() size on the CPU, an
 # input perturbed by one ulp moves its hidden state by 25 ulps after 4
@@ -3286,6 +3322,22 @@ def _rel_err(got, want) -> dict:
             "max_abs": float(want.abs().max())}
 
 
+def _ulp_probe(dev, cfg, params, docs) -> float:
+    """How far f32 rounding alone moves this stack's output: ``docs``'
+    unit embeddings with every embedding-table entry moved by one ulp (a
+    seeded sign) against the same embeddings unmoved."""
+    import torch
+    from repro_torch.serving import pooled_unit_embed
+
+    docs = torch.from_numpy(docs).to(dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    sign = torch.randint(0, 2, params["embed"].shape, generator=gen, device=dev) * 2 - 1
+    nudged = dict(params, embed=params["embed"] * (1 + 2.0 ** -23 * sign))
+    del sign
+    return float((pooled_unit_embed(nudged, cfg, docs)
+                  - pooled_unit_embed(params, cfg, docs)).abs().max())
+
+
 def phase_xlstm_serve(dev, smi, cfg, params, rec0) -> dict:
     """4s: the system end to end (:func:`_lm_serve`) at xlstm-350m's full
     width into ``SSSJService(theta=0.85, lam=0.05, dim=1024,
@@ -3306,16 +3358,8 @@ def phase_xlstm_serve(dev, smi, cfg, params, rec0) -> dict:
                                                       "xlstm_serve")
     rec["cpu_embed_max_abs_err"] = _cpu_embed_check(cfg, params, stream, recorded,
                                                     "xlstm serve", XLSTM_EMBED_TOL)
-    # the same documents with every embedding-table entry moved by one ulp
-    # (a seeded sign): how far f32 rounding alone moves this stack's output
-    docs = torch.from_numpy(stream[0][0][:SERVE_CPU_DOCS]).to(dev)
+    rec["embed_ulp_sensitivity"] = _ulp_probe(dev, cfg, params, stream[0][0][:SERVE_CPU_DOCS])
     gen = torch.Generator(dev).manual_seed(SEED)
-    sign = torch.randint(0, 2, params["embed"].shape, generator=gen, device=dev) * 2 - 1
-    nudged = dict(params, embed=params["embed"] * (1 + 2.0 ** -23 * sign))
-    del sign
-    rec["embed_ulp_sensitivity"] = float((pooled_unit_embed(nudged, cfg, docs)
-                                          - pooled_unit_embed(params, cfg, docs)).abs().max())
-    del nudged
     copies = _planted_sources(stream)
     emitted = {(a, b) for a, b, _ in flat}
     rec.update(planted_detected=len(copies),
@@ -3437,6 +3481,115 @@ def phase_xlstm_long(dev, smi, cfg, params) -> dict:
           "mlstm_step_ms": step_ms, "cpu_checks_s": cpu_s,
           "phase_s": time.monotonic() - t_phase})
     return launches
+
+
+# --------------------------------------------------------------------- #
+# phases 4v-4x: the Mamba2 hybrid and its decode
+# --------------------------------------------------------------------- #
+# zamba2-2.7b at its full width (src/repro_torch/configs/zamba2_2_7b.py: 54
+# Mamba2 layers in 9 units of 6, each unit followed by one invocation of
+# the one shared attention+MLP block (32 heads = 32 kv heads of 80, d_ff
+# 10,240); d_model 2,560, d_inner 5,120 in 80 SSD heads of 64, d_state 64,
+# conv width 4, SSD chunks of 256; vocabulary 32,000, untied head), random
+# f32 weights drawn on the card from SEED: 2,422,670,240 parameters, 9.02 GiB
+ZAMBA_ARCH = "zamba2-2.7b"
+# 4v: 16 requests of 128 documents x 64 tokens (one SSD chunk of 64 a
+# layer), 25 % planted near-duplicates, into 4k's service at d 2,560
+# (2,048 documents: no wrap)
+ZAMBA_SERVE = dict(requests=16, batch=128, seq=64, dup_frac=0.25, seed=SEED)
+ZAMBA_SVC = dict(SERVE_SVC, dim=2560)
+ZAMBA_EMBED_TOL = EMBED_TOL
+# 4w: unit 0's first Mamba2 layer (its residual branch), card against CPU,
+# within MAMBA_RTOL of its largest |value| (f32 sums in another order)
+MAMBA_RTOL = 2e-5
+MAMBA_CHECK_DOCS = 2
+# 4x: 4r's protocol cut to what the reference's SSD takes: caches of 4 x
+# 256, one prefill of 192 tokens (one chunk), 64 steps against the
+# cache-less forward over 256 tokens (one chunk of 256); 4r's prefill of
+# 448 is no multiple of a chunk of 256, which the reference's reshape
+# refuses, and a prefill with a cache restarts the SSD state, so decode
+# continues only from a prefill into empty caches
+ZAMBA_DECODE = dict(batch=4, max_len=256, prefill=192, steps=64)
+# 4v and 4w time one forward once, with no warm-up call (the phase's own
+# run warmed it): 1.4 and 3.1 s a forward, where 4k's take 0.26 s
+ZAMBA_FWD = (1, 0)
+
+
+def phase_zamba_serve(dev, smi, cfg, params, rec0) -> dict:
+    """4v: the system end to end (:func:`_lm_serve`) at zamba2-2.7b's full
+    width into ``SSSJService(theta=0.85, lam=0.05, dim=2560,
+    capacity=8192, block=128)``: 54 Mamba2 layers (one SSD chunk of 64 a
+    document) and 9 invocations of the shared block a forward;
+    ``SERVE_CPU_DOCS`` documents re-embedded on the CPU within
+    ``ZAMBA_EMBED_TOL`` (:func:`_cpu_embed_check`, timed) beside the
+    one-ulp probe (:func:`_ulp_probe`); planted copies found; the device
+    launches of one forward of a request, from the profiler."""
+    import torch
+    from repro_torch.serving import pooled_unit_embed
+
+    rec, launches, stream, recorded, flat = _lm_serve(dev, smi, cfg, params, rec0,
+                                                      ZAMBA_SERVE, ZAMBA_SVC, "zamba serve",
+                                                      "zamba_serve", ZAMBA_FWD)
+    t0 = time.monotonic()
+    rec["cpu_embed_max_abs_err"] = _cpu_embed_check(cfg, params, stream, recorded,
+                                                    "zamba serve", ZAMBA_EMBED_TOL)
+    rec["cpu_embed_s"] = time.monotonic() - t0
+    rec["cpu_embed_documents"] = SERVE_CPU_DOCS
+    rec["embed_ulp_sensitivity"] = _ulp_probe(dev, cfg, params, stream[0][0][:SERVE_CPU_DOCS])
+    copies = _planted_sources(stream)
+    emitted = {(a, b) for a, b, _ in flat}
+    rec.update(planted_detected=len(copies),
+               planted_found=sum(pair in emitted for pair in copies))
+    toks = torch.from_numpy(stream[0][0]).to(dev)
+    _, prof = _device_trace(lambda: pooled_unit_embed(params, cfg, toks), dev)
+    rec.update(forward_launches=prof["device_launches"],
+               forward_profiled_device_ms=prof["device_busy_ms"],
+               forward_profiled_wall_ms=prof["wall_ms"],
+               forward_profiled_busy_share=prof["device_busy_share"])
+    _emit_phase(rec)
+    return launches
+
+
+def phase_zamba_long(dev, smi, cfg, params) -> tuple:
+    """4w: :func:`phase_lm_long` at zamba2-2.7b's full width: 8 documents
+    of 2,048 tokens (8 SSD chunks of 256 a layer), each of the 9
+    invocations of the shared block on ``flash_attn.cu`` (H 32 = Hkv, Dh
+    80 padded to 128); the flash check on the shared block's first
+    invocation, its input unit 0's six Mamba2 layers run on the card; the
+    first of them (its residual branch, on ``MAMBA_CHECK_DOCS`` documents)
+    against the same layer on the CPU within ``MAMBA_RTOL`` of its largest
+    |value|.  Returns ``(launches, flash record)``."""
+    from repro_torch.models import params_from_numpy, params_to_numpy
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.lm import _layer
+    from repro_torch.models.ssm import mamba2
+
+    unit0 = _layer(params["groups"][0]["stacked"], 0)
+    checks: dict = {}
+
+    def attn_input(x):
+        for j in range(cfg.hybrid.shared_every):
+            p = _layer(unit0, j)
+            y, _ = mamba2(p["mamba"], cfg, rms_norm(p["norm"], x, cfg.norm_eps))
+            if j == 0:
+                n = MAMBA_CHECK_DOCS
+                t0 = time.monotonic()
+                on_cpu = params_from_numpy(params_to_numpy(p), "cpu")
+                y_cpu, _ = mamba2(on_cpu["mamba"], cfg,
+                                  rms_norm(on_cpu["norm"], x[:n].cpu(), cfg.norm_eps))
+                c = _rel_err(y[:n], y_cpu)
+                if not c["max_abs_err"] <= MAMBA_RTOL * c["max_abs"]:
+                    raise AssertionError(f"zamba long: Mamba2 layer 0 differs on the card and "
+                                         f"the CPU by {c['max_abs_err']} (largest |value| "
+                                         f"{c['max_abs']})")
+                checks.update(mamba_layer0_card_vs_cpu=c, mamba_rtol=MAMBA_RTOL,
+                              mamba_check_documents=n, mamba_cpu_s=time.monotonic() - t0)
+            x = x + y
+        return x, params["groups"][0]["shared"]
+
+    return phase_lm_long(dev, smi, cfg, params, "zamba_long", attn_input=attn_input,
+                         flash_launches=cfg.n_layers // cfg.hybrid.shared_every,
+                         extra=lambda: checks, fwd=ZAMBA_FWD)
 
 
 # --------------------------------------------------------------------- #
@@ -3709,6 +3862,14 @@ def main() -> int:
         by_path["xlstm_serve"] = phase_xlstm_serve(dev, smi, cfg, params, xlstm_rec)
         by_path["xlstm_long"] = phase_xlstm_long(dev, smi, cfg, params)
         by_path["xlstm_decode"] = phase_decode(dev, smi, cfg, params, "xlstm_decode")
+        del params                   # zamba2-2.7b's 9.02 GiB come next
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, params, zamba_rec = lm_params(dev, ZAMBA_ARCH)
+        by_path["zamba_serve"] = phase_zamba_serve(dev, smi, cfg, params, zamba_rec)
+        by_path["zamba_long"], zamba_flash = phase_zamba_long(dev, smi, cfg, params)
+        by_path["zamba_decode"] = phase_decode(dev, smi, cfg, params, "zamba_decode",
+                                               ZAMBA_DECODE)
         lm_s = time.monotonic() - t_lm
         del params
         gc.collect()
@@ -3748,6 +3909,7 @@ def main() -> int:
                      **{path: counts.get("flash_attn", 0) for path, counts in by_path.items()},
                      "flash_phase": flash["launches"]},
                  "lm_long_documents": lm_flash, "moe_long_documents": moe_flash,
+                 "zamba_long_documents": zamba_flash,
                  "ptxas_bf16": device["ptxas_flash_bf16"],
                  "ptxas_f32_3xtf32": device["ptxas_flash_tf32"]})
     emit({"phase": "total", "seconds": time.monotonic() - t_start,

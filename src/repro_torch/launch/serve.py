@@ -1,12 +1,14 @@
 """The serving entry point: the system end to end.
 
 Counterpart of ``repro.launch.serve``.  Batched requests (token
-sequences) → LM embedding (a dense-attention, MoE or xLSTM ``--arch``,
-at its ``reduced()`` size, random weights drawn from ``seed``; MoE blocks
-run the reference's capacity dispatch, so a document's embedding depends
-on its batch) → streaming similarity self-join → near-duplicate groups and
-trend events, printed as they are detected.  Runs on CUDA unless given
-``--device cpu``.
+sequences) → LM embedding (a dense-attention, MoE, Mamba2 hybrid or xLSTM
+``--arch``, at its ``reduced()`` size, random weights drawn from
+``seed``; MoE blocks run the reference's capacity dispatch, so a
+document's embedding depends on its batch; the hybrid's documents must be
+a multiple of its SSD chunk, 32 tokens at that size, or shorter) →
+streaming similarity self-join → near-duplicate groups and trend events,
+printed as they are detected.  Runs on CUDA unless given ``--device
+cpu``.
 
 Example (CPU, seconds):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -15,6 +17,8 @@ Example (CPU, seconds):
         --arch olmoe-1b-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch xlstm-350m
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch zamba2-2.7b
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """The LM stack: the ported archs' forward pass and decode in PyTorch.
 
 Counterpart of ``repro.models`` for the ``attn_dense`` and ``attn_moe``
-archs with GQA attention and the ``xlstm`` arch (mLSTM and sLSTM
-blocks); MLA and hybrid blocks and ``mtp_logits`` are not ported yet.
+archs with GQA attention, the ``hybrid`` arch (Mamba2 layers and a shared
+attention block) and the ``xlstm`` arch (mLSTM and sLSTM blocks); MLA
+blocks and ``mtp_logits`` are not ported yet.
 """
 
 from .attention import AttnCache, init_attn_cache  # noqa: F401
@@ -20,6 +21,13 @@ from .lm import (  # noqa: F401
     lm_forward,
     make_plan,
     param_count,
+)
+from .ssm import (  # noqa: F401
+    SSMCache,
+    init_mamba2,
+    init_ssm_cache,
+    mamba2,
+    mamba2_decode,
 )
 from .xlstm import (  # noqa: F401
     MLSTMCache,

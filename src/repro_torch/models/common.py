@@ -25,6 +25,7 @@ __all__ = [
     "dense_init",
     "embed_init",
     "rms_norm",
+    "silu",
     "init_rms_norm",
     "rope_angles",
     "apply_rope",
@@ -84,6 +85,16 @@ def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: ``x · (1 / (1 +
+    exp(−x)))``, each step rounded to ``x``'s dtype.  ``F.silu`` rounds
+    once, which in bf16 moves 39 % of the outputs by an ulp; in f32 the
+    two agree to an ulp, and f32 runs ``F.silu``."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def rope_angles(positions: torch.Tensor, dim: int, theta: float

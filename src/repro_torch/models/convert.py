@@ -18,6 +18,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from .attention import AttnCache
+from .ssm import SSMCache
 from .xlstm import MLSTMCache, SLSTMCache
 
 __all__ = ["params_from_numpy", "params_to_numpy", "caches_from_numpy",
@@ -58,16 +59,19 @@ def params_to_numpy(params: Any) -> Any:
     return params.detach().cpu().numpy()
 
 
-# an xLSTM group's caches, by their key in the group's dict
-_GROUP_CACHES = {"mlstm": MLSTMCache, "slstm": SLSTMCache}
+# a hybrid or xLSTM group's caches, by their key in the group's dict
+_GROUP_CACHES = {"mamba": SSMCache, "attn": AttnCache, "mlstm": MLSTMCache,
+                 "slstm": SLSTMCache}
 
 
 def caches_from_numpy(caches: Any, device: DeviceLike = None) -> List[Any]:
     """The reference's ``init_lm_caches`` list with numpy leaves as the
     port's caches on ``device`` (``None`` = CUDA), in their dtype (bf16
     too): an attention group's ``(k, v)`` pair becomes an ``AttnCache``,
-    an xLSTM group's ``{"mlstm": …, "slstm": …}`` an ``MLSTMCache`` and an
-    ``SLSTMCache`` (fields in the reference's order)."""
+    a hybrid group's ``{"mamba": …, "attn": …}`` an ``SSMCache`` and an
+    ``AttnCache``, an xLSTM group's ``{"mlstm": …, "slstm": …}`` an
+    ``MLSTMCache`` and an ``SLSTMCache`` (fields in the reference's
+    order)."""
     dev = resolve_device(device)
 
     def conv(c, kind=AttnCache):

@@ -8,13 +8,16 @@ over it, one block at a time on the stacked tensors' slices.
 
 Ported: the ``attn_dense`` group (qwen3-0.6b, qwen2.5-3b, codeqwen1.5-7b,
 deepseek-coder-33b, chameleon-34b, musicgen-medium), the ``attn_moe``
-group with GQA attention (olmoe-1b-7b) and the ``xlstm`` group
-(xlstm-350m: each unit ``slstm_every - 1`` mLSTM blocks, then one sLSTM
-block), :func:`init_lm`, :func:`param_count`, :func:`lm_forward` (with
-primed caches and the MoE aux loss), :func:`init_lm_caches` and
-:func:`lm_decode_step`.  MLA attention, the hybrid plan, ``mtp_logits``
-and the logical sharding specs (``lm_specs``, ``lm_cache_specs``) are not
-ported yet and raise or are absent (ROADMAP queue 1, items 9b and 10).
+group with GQA attention (olmoe-1b-7b), the ``hybrid`` group (zamba2-2.7b:
+each unit ``shared_every`` Mamba2 layers, then one invocation of the
+*shared* attention+MLP block, whose weights sit outside the stack and
+whose every invocation has its own attention cache) and the ``xlstm``
+group (xlstm-350m: each unit ``slstm_every - 1`` mLSTM blocks, then one
+sLSTM block), :func:`init_lm`, :func:`param_count`, :func:`lm_forward`
+(with primed caches and the MoE aux loss), :func:`init_lm_caches` and
+:func:`lm_decode_step`.  MLA attention, ``mtp_logits`` and the logical
+sharding specs (``lm_specs``, ``lm_cache_specs``) are not ported yet and
+raise or are absent (ROADMAP queue 1, items 9b and 10).
 
 Caches are written in place and returned: the reference's functional
 cache updates are donated by its serving programs.  Every layer's cache
@@ -38,6 +41,7 @@ from .attention import (
 from .common import Initializer, embed_init, rms_norm
 from .mlp import init_mlp, mlp
 from .moe import init_moe, moe
+from .ssm import SSMCache, init_mamba2, init_ssm_cache, mamba2, mamba2_decode
 from .xlstm import (
     MLSTMCache, SLSTMCache, init_mlstm_block, init_mlstm_cache, init_slstm_block,
     init_slstm_cache, mlstm_block, slstm_block,
@@ -49,7 +53,7 @@ __all__ = [
 ]
 
 _ATTN_KINDS = ("attn_dense", "attn_moe")
-_PORTED_KINDS = _ATTN_KINDS + ("xlstm",)
+_PORTED_KINDS = _ATTN_KINDS + ("hybrid", "xlstm")
 
 
 class GroupPlan(NamedTuple):
@@ -78,7 +82,8 @@ def make_plan(cfg: ModelConfig) -> List[GroupPlan]:
 
 def _ported_plan(cfg: ModelConfig) -> List[GroupPlan]:
     """The plan, if the port runs every group of it: attention blocks
-    with GQA attention and a dense or MoE feed-forward, and xLSTM units."""
+    with GQA attention and a dense or MoE feed-forward, Mamba2 hybrid
+    units and xLSTM units."""
     plan = make_plan(cfg)
     other = sorted({g.kind for g in plan} - set(_PORTED_KINDS))
     if other or cfg.mla is not None or cfg.mtp:
@@ -87,7 +92,7 @@ def _ported_plan(cfg: ModelConfig) -> List[GroupPlan]:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {what} are not ported yet (ROADMAP "
             f"queue 1, item 9b); the port runs GQA attention blocks with a "
-            f"dense or MoE feed-forward, and xLSTM blocks"
+            f"dense or MoE feed-forward, Mamba2 hybrid units and xLSTM blocks"
         )
     return plan
 
@@ -122,9 +127,22 @@ def _init_xlstm_unit(init: Initializer, cfg: ModelConfig):
     return {"mlstm": _stack(mls), "slstm": init_slstm_block(init, cfg)}
 
 
+def _init_mamba_layer(init: Initializer, cfg: ModelConfig):
+    return {"norm": torch.ones((cfg.d_model,), dtype=torch.float32, device=init.device),
+            "mamba": init_mamba2(init, cfg)}
+
+
+def _init_hybrid_unit(init: Initializer, cfg: ModelConfig):
+    """``shared_every`` stacked Mamba2 layers (the shared block lives
+    outside the stack)."""
+    return _stack([_init_mamba_layer(init, cfg) for _ in range(cfg.hybrid.shared_every)])
+
+
 def _init_unit(init: Initializer, cfg: ModelConfig, kind: str):
     if kind == "xlstm":
         return _init_xlstm_unit(init, cfg)
+    if kind == "hybrid":
+        return _init_hybrid_unit(init, cfg)
     return _init_attn_block(init, cfg, kind == "attn_moe")
 
 
@@ -146,10 +164,15 @@ def _layer(tree, i: int):
 
 
 def init_lm(init: Initializer, cfg: ModelConfig) -> Dict[str, Any]:
-    """All parameters (float32), drawn in the reference's order; the tree
-    mirrors the reference's ``init_lm`` leaf for leaf."""
-    groups = [{"stacked": _stack([_init_unit(init, cfg, g.kind) for _ in range(g.count)])}
-              for g in _ported_plan(cfg)]
+    """All parameters (float32), drawn in the reference's order (a hybrid
+    group's units, then its shared block); the tree mirrors the
+    reference's ``init_lm`` leaf for leaf."""
+    groups = []
+    for g in _ported_plan(cfg):
+        groups.append({"stacked": _stack([_init_unit(init, cfg, g.kind)
+                                          for _ in range(g.count)])})
+        if g.kind == "hybrid":
+            groups[-1]["shared"] = _init_attn_block(init, cfg, use_moe=False)
     params: Dict[str, Any] = {
         "embed": embed_init(init, (cfg.vocab_size, cfg.d_model)),
         "groups": groups,
@@ -193,13 +216,22 @@ def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16, device=None) -> List[Any]:
     """Decode caches, parallel to ``params['groups']``, on ``device``: a
     stacked ``AttnCache`` ``(layers, B, M, KV, hd)`` of zeros for an
-    attention group; for an xLSTM group ``{"mlstm": MLSTMCache (units,
-    slstm_every - 1, B, …), "slstm": SLSTMCache (units, B, …)}`` in the
-    states' initial values (their conv windows in ``dtype``, the rest
-    f32; ``max_len`` does not apply)."""
+    attention group; for a hybrid group ``{"mamba": SSMCache (units,
+    shared_every, B, …), "attn": AttnCache (units, B, M, KV, hd)}`` (one
+    attention cache for each invocation of the shared block); for an
+    xLSTM group ``{"mlstm": MLSTMCache (units, slstm_every - 1, B, …),
+    "slstm": SLSTMCache (units, B, …)}`` in the states' initial values
+    (their conv windows in ``dtype``, the rest f32; ``max_len`` does not
+    apply)."""
     caches: List[Any] = []
     for g in _ported_plan(cfg):
-        if g.kind == "xlstm":
+        if g.kind == "hybrid":
+            m = init_ssm_cache(cfg, batch, dtype, device)
+            a = init_attn_cache(cfg, batch, max_len, dtype, device)
+            caches.append({"mamba": SSMCache(*(_tile(x, g.count, cfg.hybrid.shared_every)
+                                               for x in m)),
+                           "attn": AttnCache(*(_tile(x, g.count) for x in a))})
+        elif g.kind == "xlstm":
             k = cfg.xlstm.slstm_every
             ml = init_mlstm_cache(cfg, batch, dtype, device)
             sl = init_slstm_cache(cfg, batch, dtype, device)
@@ -256,6 +288,46 @@ def _xlstm_unit_apply(params, cfg: ModelConfig, x, cache):
         x, _ = mlstm_block(_layer(params["mlstm"], j), cfg, x, c)
     x, _ = slstm_block(params["slstm"], cfg, x, None if cache is None else cache["slstm"])
     return x
+
+
+def _hybrid_unit_apply(params, shared, cfg: ModelConfig, x, positions, cache, cache_len,
+                       positions_are_arange: bool):
+    """One hybrid unit: ``shared_every`` residual Mamba2 layers, then the
+    shared attention+MLP block with the unit's own attention cache; the
+    unit's caches, if given, are written in place."""
+    for j in range(cfg.hybrid.shared_every):
+        p = _layer(params, j)
+        y, _ = mamba2(p["mamba"], cfg, rms_norm(p["norm"], x, cfg.norm_eps),
+                      None if cache is None else _layer(cache["mamba"], j))
+        x = x + y
+    x, _, _ = _attn_block_apply(shared, cfg, x, positions,
+                                None if cache is None else cache["attn"], cache_len,
+                                False, positions_are_arange=positions_are_arange)
+    return x
+
+
+def _hybrid_unit_decode(params, shared, cfg: ModelConfig, x, positions, cache,
+                        cache_len: int):
+    """One hybrid unit's decode step: each Mamba2 layer's recurrent step
+    (its state and window written in place), then the shared block on the
+    unit's read-only attention cache.  Returns ``(x, (k_new, v_new))``."""
+    for j in range(cfg.hybrid.shared_every):
+        p = _layer(params, j)
+        y, _ = mamba2_decode(p["mamba"], cfg, rms_norm(p["norm"], x, cfg.norm_eps),
+                             _layer(cache["mamba"], j))
+        x = x + y
+    return _attn_block_decode(shared, cfg, x, positions, cache["attn"], cache_len, False)
+
+
+def _widen_conv(cache: Dict[str, Any], compute_dtype: torch.dtype) -> None:
+    """A hybrid group's stacked conv windows in the dtype the reference's
+    decode concatenation gives them (bf16 windows under f32 compute come
+    back f32 from its first step), replaced in the group's dict once, so
+    that every layer's step writes its window in place."""
+    m = cache["mamba"]
+    wide = torch.promote_types(m.conv.dtype, compute_dtype)
+    if m.conv.dtype != wide:
+        cache["mamba"] = m._replace(conv=m.conv.to(wide))
 
 
 def _append_tokens(cache: AttnCache, news, cache_len: int) -> AttnCache:
@@ -317,6 +389,10 @@ def lm_forward(
                 if g.kind == "xlstm":
                     x = _xlstm_unit_apply(_layer(stacked, i), cfg, x, c)
                     continue
+                if g.kind == "hybrid":
+                    x = _hybrid_unit_apply(_layer(stacked, i), params["groups"][gi]["shared"],
+                                           cfg, x, positions, c, cache_len, arange)
+                    continue
                 x, _, aux = _attn_block_apply(_layer(stacked, i), cfg, x, positions, c,
                                               cache_len, use_moe, moe_dropless, arange)
                 if aux is not None:
@@ -341,14 +417,18 @@ def lm_decode_step(
     token's k/v appended to the attention caches at ``cache_len``, the
     recurrent states overwritten, in place.  xLSTM units run their
     prefill blocks at S = 1, as the reference's decode does, and take no
-    position (``cache_len`` bounds only the attention caches)."""
+    position (``cache_len`` bounds only the attention caches).  Hybrid
+    units run each Mamba2 layer's recurrent step, then the shared block;
+    a bf16 conv window under f32 compute is widened to f32 in the group's
+    dict (the reference's decode returns it so)."""
     plan = _ported_plan(cfg)
     x = _embed(params, tokens, embeds, compute_dtype)
     B = x.shape[0]
     cache_len = int(cache_len)
     for g, cache in zip(plan, caches):
-        if g.kind in _ATTN_KINDS and not 0 <= cache_len < cache.k.shape[2]:
-            raise ValueError(f"a token at {cache_len} overruns caches of {cache.k.shape[2]}")
+        kv = cache["attn"] if g.kind == "hybrid" else cache
+        if g.kind != "xlstm" and not 0 <= cache_len < kv.k.shape[2]:
+            raise ValueError(f"a token at {cache_len} overruns caches of {kv.k.shape[2]}")
     positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
     new_caches = []
     with ieee_f32(x.device):
@@ -359,13 +439,22 @@ def lm_decode_step(
                     x = _xlstm_unit_apply(_layer(stacked, i), cfg, x, _layer(cache, i))
                 new_caches.append(cache)
                 continue
-            use_moe = g.kind == "attn_moe"
+            hybrid = g.kind == "hybrid"
+            if hybrid:
+                _widen_conv(cache, compute_dtype)
             news = []
             for i in range(g.count):
-                x, new = _attn_block_decode(_layer(stacked, i), cfg, x, positions,
-                                            _layer(cache, i), cache_len, use_moe)
+                if hybrid:
+                    x, new = _hybrid_unit_decode(_layer(stacked, i),
+                                                 params["groups"][gi]["shared"], cfg, x,
+                                                 positions, _layer(cache, i), cache_len)
+                else:
+                    x, new = _attn_block_decode(_layer(stacked, i), cfg, x, positions,
+                                                _layer(cache, i), cache_len,
+                                                g.kind == "attn_moe")
                 news.append(new)
-            new_caches.append(_append_tokens(
-                cache, [torch.stack(n) for n in zip(*news)], cache_len))
+            _append_tokens(cache["attn"] if hybrid else cache,
+                           [torch.stack(n) for n in zip(*news)], cache_len)
+            new_caches.append(cache)
         logits, _ = _logits(params, cfg, x, compute_dtype)
     return logits, new_caches

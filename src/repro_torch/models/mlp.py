@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import Initializer, dense_init
+from .common import Initializer, dense_init, silu
 
 __all__ = ["init_mlp", "mlp"]
 
@@ -26,4 +26,4 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     g = x @ params["w_gate"].to(dt)
     u = x @ params["w_up"].to(dt)
-    return (torch.nn.functional.silu(g) * u) @ params["w_down"].to(dt)
+    return (silu(g) * u) @ params["w_down"].to(dt)

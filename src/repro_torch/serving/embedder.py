@@ -14,9 +14,9 @@ order differently, so the two agree to a tolerance that the callers
 measure.  MoE archs run the reference's capacity dispatch (no
 ``moe_dropless``, as in the reference), so a document's embedding also
 depends on the other documents of its batch, through the drops.  The
-xLSTM arch (xlstm-350m) runs its recurrent blocks from their initial
-states over each document's tokens, pad positions included, as the
-reference does.
+xLSTM arch (xlstm-350m) and the Mamba2 hybrid (zamba2-2.7b) run their
+recurrent blocks from their initial states over each document's tokens,
+pad positions included, as the reference does.
 """
 
 from __future__ import annotations

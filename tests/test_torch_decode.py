@@ -15,7 +15,11 @@ forward, here within 1e-5 (the reference's test allows 2e-3).
 xlstm-350m's recurrent caches (``MLSTMCache``, ``SLSTMCache``) go
 through the same steps, every field held against the reference's (the
 states that grow with the sequence relative to their largest value,
-1e-6), and cross packages with a bf16 conv window.
+1e-6), and cross packages with a bf16 conv window.  So do zamba2-2.7b's
+hybrid caches (an ``SSMCache`` for each Mamba2 layer, an ``AttnCache``
+for each invocation of the shared block); from the reference's bf16
+caches its decode widens the conv windows to f32, as the reference's
+does, and the two packages stay together over four steps.
 """
 
 import numpy as np
@@ -34,6 +38,7 @@ from repro_torch.models import (
     AttnCache,
     MLSTMCache,
     SLSTMCache,
+    SSMCache,
     caches_from_numpy,
     caches_to_numpy,
     init_attn_cache,
@@ -49,8 +54,10 @@ from repro_torch.models.common import Initializer
 CPU = "cpu"
 ATOL = 1e-5
 ATTN_ARCHS = ("qwen3-0.6b", "qwen2.5-3b", "codeqwen1.5-7b")
-DECODE_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b", "musicgen-medium", "xlstm-350m")
+DECODE_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b", "musicgen-medium", "xlstm-350m",
+                "zamba2-2.7b")
 XLSTM = "xlstm-350m"
+HYBRID = "zamba2-2.7b"
 # a recurrent state's error, of its largest |value|: a block's state
 # carries its own f32 rounding over every step (within 1e-6 for a block
 # alone, tests/test_torch_xlstm.py) and its input's, which the blocks
@@ -377,3 +384,94 @@ def test_xlstm_decode_ignores_cache_len_and_runs_on_the_ports_own_params():
     lo, hi = out[torch.bfloat16].float(), out[torch.float32]
     assert out[torch.bfloat16].dtype == torch.bfloat16 and bool(torch.isfinite(lo).all())
     assert float((lo - hi).abs().max()) < 0.05 * float(hi.abs().max())
+
+
+# --------------------------------------------------------------------- #
+# zamba2-2.7b: hybrid caches
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_init_caches_mirror_the_reference(dtype):
+    """``{"mamba": SSMCache (units, shared_every, B, ...), "attn":
+    AttnCache (units, B, M, KV, hd)}``: the reference's shapes and dtypes
+    (the SSD states f32, the conv windows and k/v in ``dtype``), zeros,
+    each layer's and each invocation's in memory of its own."""
+    jcfg, tcfg = _cfgs(HYBRID)
+    tdt = getattr(torch, dtype)
+    got = init_lm_caches(tcfg, 3, 40, tdt, CPU)
+    want = _np(jlm.init_lm_caches(jcfg, 3, 40, getattr(jnp, dtype)))
+    assert len(got) == len(want) == 1
+    assert isinstance(got[0]["mamba"], SSMCache) and isinstance(got[0]["attn"], AttnCache)
+    for key in ("mamba", "attn"):
+        for name, g, w in zip(got[0][key]._fields, got[0][key], want[0][key]):
+            assert tuple(g.shape) == w.shape, name
+            assert str(g.dtype).split(".")[-1] == str(w.dtype), name
+            assert not g.any() and g.is_contiguous() and 0 not in g.stride()
+    m = got[0]["mamba"]
+    m.state[0, 0].fill_(1.0)
+    assert not m.state[1].any() and not m.state[0, 1].any()
+
+
+def test_hybrid_decode_from_the_reference_caches():
+    """The reference's caches primed by a 10-token prefill, in bf16 (its
+    default), carried across as bits; then four decode steps of each
+    package, f32 compute: logits and every cache field after each step.
+    From the first step both packages' conv windows are f32 (the
+    reference's concatenation promotes them; the port widens the group's
+    window once), the new columns unrounded, so the two stay together."""
+    jcfg, tcfg = _cfgs(HYBRID)
+    jp = _ref_params(HYBRID)
+    tp = params_from_numpy(_np(jp), CPU)
+    B, M, P, n = 3, 16, 10, 4
+    toks = np.random.default_rng(29).integers(1, jcfg.vocab_size, (B, P + n)).astype(np.int32)
+    _, _, wc = jlm.lm_forward(jp, jcfg, tokens=jnp.asarray(toks[:, :P]),
+                              caches=jlm.init_lm_caches(jcfg, B, M), cache_len=jnp.int32(0),
+                              compute_dtype=jnp.float32)
+    ref_caches = _np(wc)
+    caches = caches_from_numpy(ref_caches, CPU)
+    assert caches[0]["mamba"].conv.dtype == caches[0]["attn"].k.dtype == torch.bfloat16
+    assert caches[0]["mamba"].state.dtype == torch.float32
+    back = caches_to_numpy(caches)
+    for key in ("mamba", "attn"):
+        for g, w in zip(back[0][key], ref_caches[0][key]):
+            np.testing.assert_array_equal(g, w.astype(np.float32))   # exact both ways
+    for pos in range(P, P + n):
+        step = toks[:, pos:pos + 1]
+        wl, wc = jlm.lm_decode_step(jp, jcfg, jnp.asarray(step), wc, jnp.int32(pos),
+                                    compute_dtype=jnp.float32)
+        gl, caches = lm_decode_step(tp, tcfg, torch.from_numpy(step), caches, pos,
+                                    compute_dtype=torch.float32)
+        _close(gl, wl)
+        got, want = caches_to_numpy(caches), _np(wc)
+        assert caches[0]["mamba"].conv.dtype == torch.float32
+        assert want[0]["mamba"].conv.dtype == np.float32
+        for name, g, w in zip(got[0]["mamba"]._fields, got[0]["mamba"], want[0]["mamba"]):
+            np.testing.assert_allclose(g, w, atol=ATOL, rtol=0, err_msg=name)
+        for g, w in zip(got[0]["attn"], want[0]["attn"]):
+            w = w.astype(np.float32)
+            np.testing.assert_array_equal(g[:, :, :P], w[:, :, :P])
+            # the new tokens' k/v: f32 values a few 1e-7 apart may round to
+            # neighbouring bf16 numbers (one step: 2^-7 of the value)
+            np.testing.assert_allclose(g[:, :, P:pos + 1], w[:, :, P:pos + 1], rtol=2 ** -7,
+                                       atol=1e-6)
+            assert not g[:, :, pos + 1:].any()
+
+
+def test_hybrid_decode_runs_on_the_ports_own_params():
+    """bf16 compute with bf16 caches (the windows stay bf16: nothing to
+    widen) near the f32 run; a position past the attention caches
+    raises."""
+    _, tcfg = _cfgs(HYBRID)
+    tp = init_lm(Initializer(torch.Generator().manual_seed(30), CPU), tcfg)
+    toks = torch.from_numpy(np.random.default_rng(30).integers(1, 512, (2, 8)))
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        caches = init_lm_caches(tcfg, 2, 8, dt, CPU)
+        _, _, caches = lm_forward(tp, tcfg, tokens=toks[:, :7], caches=caches, cache_len=0,
+                                  compute_dtype=dt)
+        out[dt], caches = lm_decode_step(tp, tcfg, toks[:, 7:], caches, 7, compute_dtype=dt)
+        assert caches[0]["mamba"].conv.dtype == dt
+    lo, hi = out[torch.bfloat16].float(), out[torch.float32]
+    assert out[torch.bfloat16].dtype == torch.bfloat16 and bool(torch.isfinite(lo).all())
+    assert float((lo - hi).abs().max()) < 0.05 * float(hi.abs().max())
+    with pytest.raises(ValueError, match="overruns"):
+        lm_decode_step(tp, tcfg, toks[:, 7:], caches, 8)

@@ -11,7 +11,9 @@ on the same parameters and the same token stream, emit the same pairs
 request by request outside an ε-band of 1e-5 around θ (scores within
 1e-5) and the same duplicate groups and trends.  The same for
 xlstm-350m (``reduced()``: two units of an mLSTM and an sLSTM block),
-its embeddings within ``XLSTM_ATOL``.
+its embeddings within ``XLSTM_ATOL``, and for zamba2-2.7b (``reduced()``:
+two units of two Mamba2 layers and the shared attention block), within
+``ATOL``.
 """
 
 import numpy as np
@@ -39,6 +41,7 @@ XLSTM = "xlstm-350m"
 # unit embeddings of xlstm-350m: its four recurrent blocks compound their
 # f32 differences from the reference (tests/test_torch_models.py)
 XLSTM_ATOL = 2e-5
+HYBRID = "zamba2-2.7b"
 
 
 @pytest.fixture(scope="module")
@@ -211,5 +214,67 @@ def test_xlstm_run_service_matches_the_reference(monkeypatch):
 
 def test_xlstm_run_service_smoke_on_cpu(capsys):
     svc, groups, _ = tserve.run_service(XLSTM, requests=6, batch=16, device=CPU)
+    assert "items=96" in capsys.readouterr().out
+    assert svc.stats.n_items == 96 and svc.engine.device.type == "cpu" and groups
+
+
+# --------------------------------------------------------------------- #
+# zamba2-2.7b
+# --------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def hybrid_ref():
+    return JEmbedder(JARCHS[HYBRID].reduced(), key=jax.random.key(2))
+
+
+def test_hybrid_pooled_unit_embed_matches(hybrid_ref):
+    """The Mamba2 hybrid's embeddings (one SSD chunk of 32 a layer),
+    padded and all-pad rows included, through ``pooled_unit_embed`` and
+    ``LMEmbedder`` (measured within 3.4e-7)."""
+    params = params_from_numpy(jax.tree.map(np.asarray, hybrid_ref.params), CPU)
+    toks = _tokens(5, B=8, S=32)
+    want = j_pooled(hybrid_ref.params, hybrid_ref.cfg, jnp.asarray(toks))
+    got = pooled_unit_embed(params, ARCHS[HYBRID].reduced(), torch.from_numpy(toks))
+    assert got.dtype == torch.float32 and got.shape == (8, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert not got[2].any()
+    emb = LMEmbedder(ARCHS[HYBRID].reduced(), params=params, device=CPU)(toks)
+    np.testing.assert_allclose(np.linalg.norm(emb[3:], axis=1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(emb, hybrid_ref(toks), atol=ATOL, rtol=0)
+
+
+def test_hybrid_run_service_matches_the_reference(monkeypatch):
+    """``run_service("zamba2-2.7b")`` in both packages (documents of 64
+    tokens, two SSD chunks of 32 a layer), the port's embedder on the
+    reference run's parameters: the same pairs request by request
+    outside the ε-band, scores within ``ATOL``, the same groups and
+    trends."""
+    kw = dict(requests=16, batch=16, seq=64, theta=0.85, lam=0.05, verbose=False)
+    ref_log, log = [], []
+    monkeypatch.setattr(jserve, "SSSJService", _recording(JService, ref_log))
+    ref_svc, ref_groups, ref_trends = jserve.run_service(HYBRID, **kw)
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_svc.embed_fn.params), CPU)
+    monkeypatch.setattr(tserve, "SSSJService", _recording(SSSJService, log))
+    monkeypatch.setattr(
+        tserve, "LMEmbedder",
+        lambda cfg, generator=None, device=None: LMEmbedder(cfg, params, device=device))
+    svc, groups, trends = tserve.run_service(HYBRID, device=CPU, **kw)
+
+    assert len(log) == len(ref_log) == 16
+    n_pairs = 0
+    for (tok, ts, pairs), (jtok, jts, jpairs) in zip(log, ref_log):
+        np.testing.assert_array_equal(tok, jtok)
+        assert _outside_band(pairs, 0.85) == _outside_band(jpairs, 0.85)
+        js = {(a, b): s for a, b, s in jpairs}
+        for a, b, s in pairs:
+            if (a, b) in js:
+                assert abs(s - js[(a, b)]) <= ATOL
+        n_pairs += len(pairs)
+    assert n_pairs >= 5        # planted copies did emit
+    assert groups and groups == ref_groups and trends == ref_trends
+    assert svc.stats.n_items == ref_svc.stats.n_items == 16 * 16
+
+
+def test_hybrid_run_service_smoke_on_cpu(capsys):
+    svc, groups, _ = tserve.run_service(HYBRID, requests=6, batch=16, device=CPU)
     assert "items=96" in capsys.readouterr().out
     assert svc.stats.n_items == 96 and svc.engine.device.type == "cpu" and groups

@@ -78,6 +78,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models.common, repro_torch.models.mlp\n"
         "import repro_torch.models.attention, repro_torch.models.lm\n"
         "import repro_torch.models.convert, repro_torch.serving.embedder\n"
+        "import repro_torch.models.ssm, repro_torch.models.xlstm, repro_torch.models.moe\n"
         "import repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
@@ -107,7 +108,7 @@ def test_port_sources_found():
             "tenants.py", "router.py", "synth.py", "sharded.py", "distributed.py",
             "mesh.py", "sharding.py", "base.py", "qwen3_0_6b.py", "common.py",
             "mlp.py", "attention.py", "lm.py", "convert.py", "embedder.py",
-            "serve.py"} <= names
+            "serve.py", "moe.py", "xlstm.py", "ssm.py"} <= names
 
 
 _HOST_CORE = ("types", "counters", "similarity", "postings", "index_inv",

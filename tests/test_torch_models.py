@@ -16,10 +16,13 @@ version there (positions ``arange(S)``) and its own
 ``chunked_causal_attention`` for explicit positions: both are held to
 the reference's function.  xlstm-350m's tree, ``param_count`` and
 forward are held here (its blocks in ``tests/test_torch_xlstm.py``,
-within ``XLSTM_ATOL``); the MLA and hybrid archs raise
-``NotImplementedError`` naming ROADMAP item 9b; the MoE block kind and
-the decode path are held in ``tests/test_torch_moe.py`` and
-``tests/test_torch_decode.py``.
+within ``XLSTM_ATOL``), and so are zamba2-2.7b's (its Mamba2 layer in
+``tests/test_torch_ssm.py``): the tree with its unstacked shared block,
+``param_count``, ``lm_forward`` in f32 and bf16 with and without primed
+caches, and the shared block on the flash route above 1,024 tokens; the
+MLA arch raises ``NotImplementedError`` naming ROADMAP item 9b; the MoE
+block kind and the decode path are held in ``tests/test_torch_moe.py``
+and ``tests/test_torch_decode.py``.
 """
 
 import dataclasses
@@ -63,8 +66,9 @@ ATOL = 1e-5
 FLASH_ATOL = 2e-5
 DENSE_ARCHS = ("qwen3-0.6b", "qwen2.5-3b", "codeqwen1.5-7b", "deepseek-coder-33b",
                "chameleon-34b", "musicgen-medium")
-OTHER_ARCHS = ("deepseek-v3-671b", "zamba2-2.7b")
+OTHER_ARCHS = ("deepseek-v3-671b",)
 XLSTM = "xlstm-350m"
+HYBRID = "zamba2-2.7b"
 # xlstm-350m's hidden state: four recurrent blocks in a row, each within
 # ~1e-6 of the reference at its output's scale, compound (measured 8.6e-6
 # on |h| up to 3.5 at 2 x 40 tokens)
@@ -247,7 +251,7 @@ def _shapes(tree):
     return jax.tree.map(lambda x: tuple(np.shape(x)), tree)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + (XLSTM,))
+@pytest.mark.parametrize("arch", DENSE_ARCHS + (XLSTM, HYBRID))
 def test_init_lm_mirrors_the_reference_tree(arch):
     jcfg, tcfg = _cfgs(arch)
     got = params_to_numpy(init_lm(Initializer(torch.Generator().manual_seed(0), CPU),
@@ -404,3 +408,145 @@ def test_xlstm_bf16_runs():
     hi, _, _ = lm_forward(tp, tcfg, tokens=toks, compute_dtype=torch.float32)
     assert lo.dtype == torch.bfloat16 and bool(torch.isfinite(lo.float()).all())
     assert float((lo.float() - hi).abs().max()) < 0.05 * float(hi.abs().max())
+
+
+# --------------------------------------------------------------------- #
+# zamba2-2.7b: the Mamba2 hybrid
+# --------------------------------------------------------------------- #
+def test_hybrid_tree_and_param_count():
+    """Each unit stacks ``shared_every`` Mamba2 layers (leaves ``(units,
+    shared_every, ...)``); the shared attention+MLP block sits beside the
+    stack, unstacked; the published size's count (the shared block's
+    105 M parameters counted once); the tree round trip, the shared block
+    included, and its deterministic leaves the reference's."""
+    jcfg, tcfg = _cfgs(HYBRID)
+    full = tconfigs.get_config(HYBRID)
+    assert param_count(full) == jlm.param_count(jconfigs.get_config(HYBRID)) == 2_422_670_240
+    for cfg in (tcfg, full):
+        group = init_lm(Initializer(device="meta"), cfg)["groups"][0]
+        units, k = cfg.n_layers // cfg.hybrid.shared_every, cfg.hybrid.shared_every
+        assert set(group) == {"stacked", "shared"}
+        assert set(group["stacked"]) == {"norm", "mamba"}
+        d_inner = cfg.ssm.expand * cfg.d_model
+        assert tuple(group["stacked"]["mamba"]["w_out"].shape) == (units, k, d_inner,
+                                                                   cfg.d_model)
+        assert tuple(group["shared"]["attn"]["wq"].shape) == (
+            cfg.d_model, cfg.n_heads, cfg.resolved_head_dim)
+    got = params_to_numpy(init_lm(Initializer(torch.Generator().manual_seed(2), CPU), tcfg))
+    again = params_to_numpy(params_from_numpy(got, CPU))
+    assert _shapes(again) == _shapes(got)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(again)):
+        np.testing.assert_array_equal(a, b)
+    want = _np(_ref_params(HYBRID))["groups"][0]
+    for path in (("stacked", "mamba", "D"), ("stacked", "norm"), ("shared", "norm1")):
+        g, w = got["groups"][0], want
+        for key in path:
+            g, w = g[key], w[key]
+        np.testing.assert_array_equal(g, w)
+
+
+# bf16 compute, of the largest |value|: the port rounds where the
+# reference's ops round (a Mamba2 layer within an ulp of the reference
+# run op by op, tests/test_torch_ssm.py), but the reference's lm_forward
+# runs its layers inside lax.scan, compiled, where XLA fuses elementwise
+# steps and skips their rounding: its own jitted and op-by-op layers
+# differ in half their outputs by an ulp, and that compounds over the
+# four layers and two shared blocks (measured 1.7e-2 of the largest
+# |logit|, 1.6e-2 of the largest |hidden|, 1.9e-2 of the largest cached k)
+HYBRID_BF16_RTOL = 2.0 ** -5
+
+
+def _hybrid_forward(dtype, cached, S=64, B=2, seed=40):
+    """Both packages' ``lm_forward`` on the reference's parameters, with
+    caches of 80 primed by this prefill or none: ``(port's (logits,
+    hidden, caches), reference's)``."""
+    jcfg, tcfg = _cfgs(HYBRID)
+    jp = _ref_params(HYBRID)
+    tp = params_from_numpy(_np(jp), CPU)
+    toks = np.random.default_rng(seed).integers(1, jcfg.vocab_size, (B, S)).astype(np.int32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jkw = dict(caches=jlm.init_lm_caches(jcfg, B, 80, jdt), cache_len=jnp.int32(0)) \
+        if cached else {}
+    tkw = dict(caches=init_lm_caches(tcfg, B, 80, tdt, CPU), cache_len=0) if cached else {}
+    wl, waux, wc, wh = jlm.lm_forward(jp, jcfg, tokens=jnp.asarray(toks), compute_dtype=jdt,
+                                      return_hidden=True, **jkw)
+    gl, aux, gc, gh = lm_forward(tp, tcfg, tokens=torch.from_numpy(toks), compute_dtype=tdt,
+                                 return_hidden=True, **tkw)
+    assert float(aux) == float(waux) == 0.0
+    assert gl.dtype == tdt and gl.shape == (B, S, jcfg.vocab_size) and gh.shape == (B, S, 64)
+    return (gl, gh, gc), (wl, wh, wc)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_hybrid_lm_forward_matches(cached):
+    """Hidden state and logits from the reference's parameters, f32, 2 x
+    64 tokens (two SSD chunks of 32 a layer, two units of two Mamba2
+    layers and the shared block): without caches, and priming empty f32
+    caches, whose every field is held too (the SSD states and conv
+    windows, and each invocation's k/v).  Measured within 4.3e-6."""
+    (gl, gh, gc), (wl, wh, wc) = _hybrid_forward("float32", cached)
+    _close(gh, wh)
+    _close(gl, wl)
+    if not cached:
+        assert gc is None and wc is None
+        return
+    got, want = gc[0], _np(wc[0])
+    assert set(got) == set(want) == {"mamba", "attn"}
+    for key in ("mamba", "attn"):
+        for name, g, w in zip(got[key]._fields, got[key], want[key]):
+            assert tuple(g.shape) == w.shape, name
+            _close(g, w)
+
+
+def _close_bf16(got: torch.Tensor, want):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.detach().float().numpy(), want,
+                               atol=HYBRID_BF16_RTOL * float(np.abs(want).max()), rtol=0)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_hybrid_lm_forward_bf16_matches(cached):
+    """bf16 compute (bf16 caches when primed): logits and hidden state in
+    bf16, and every cache field, within ``HYBRID_BF16_RTOL`` of the
+    reference's largest |value|; the conv windows stay bf16 and the SSD
+    states f32, as the reference's do."""
+    (gl, gh, gc), (wl, wh, wc) = _hybrid_forward("bfloat16", cached, seed=41)
+    assert gh.dtype == torch.bfloat16
+    _close_bf16(gl, wl.astype(jnp.float32))
+    _close_bf16(gh, wh.astype(jnp.float32))
+    if not cached:
+        return
+    got, want = gc[0], wc[0]
+    assert got["mamba"].conv.dtype == got["attn"].k.dtype == torch.bfloat16
+    assert got["mamba"].state.dtype == torch.float32
+    for key in ("mamba", "attn"):
+        for name, g, w in zip(got[key]._fields, got[key], want[key]):
+            assert str(g.dtype).split(".")[-1] == str(w.dtype), name
+            _close_bf16(g, w.astype(jnp.float32))
+
+
+def test_hybrid_shared_block_takes_flash_above_1024(monkeypatch):
+    """1,056 tokens (33 SSD chunks of 32) with positions arange(S): each
+    of the two invocations of the shared block takes the flash route (its
+    plain version on the CPU, no kernel launch), held with the whole
+    forward to the reference's ``chunked_causal_attention`` path
+    (measured 4.5e-6)."""
+    jcfg, tcfg = _cfgs(HYBRID)
+    jp = _ref_params(HYBRID)
+    tp = params_from_numpy(_np(jp), CPU)
+    S = 1056
+    toks = np.random.default_rng(42).integers(1, jcfg.vocab_size, (1, S)).astype(np.int32)
+    wl, _, _, wh = jlm.lm_forward(jp, jcfg, tokens=jnp.asarray(toks),
+                                  compute_dtype=jnp.float32, return_hidden=True)
+    tflash.flash_attention_kernel_call.launches = 0
+    calls = []
+    real = tflash.flash_attention_plain
+    monkeypatch.setattr(tflash, "flash_attention_plain",
+                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+    gl, _, _, gh = lm_forward(tp, tcfg, tokens=torch.from_numpy(toks),
+                              compute_dtype=torch.float32, return_hidden=True)
+    # (B, H, S padded to 128-row blocks, hd 16 padded to the kernel's 32)
+    assert calls == [(1, 4, 1152, 32)] * 2
+    assert tflash.flash_attention_kernel_call.launches == 0
+    _close(gh, wh, FLASH_ATOL)
+    _close(gl, wl, FLASH_ATOL)
